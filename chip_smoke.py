@@ -1,0 +1,463 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+  1. device  — the card (name, power limit), CUDA version, kernel build time
+               (both kernels are built from src/repro_torch/csrc by nvcc).
+  2. kernels — each Hopper kernel held against its plain torch version on
+               the card, in float32 (atol = rtol = 1e-4) and bfloat16
+               (atol = rtol = 2e-2), at the main path's shapes; kernel,
+               plain and library device times (CUDA events, L2 flushed
+               between launches) beside the bound.
+  3. engine  — full-width TinyLlama-1.1B (random float32 weights, seed 0)
+               through NanoCPEngine on a virtual (I=4, TP=2) mesh, pipelined
+               and not; every transcript is checked teacher-forced against
+               the port's greedy forward on the card.  Launch counters are
+               zeroed right before each run and read right after.
+  4. profile — a third pipelined run: torch.profiler over 5 steady steps
+               (device time by kernel, busy share, launches), and the paged
+               kernel re-checked and re-timed on the largest call the main
+               path made.
+  5. summary — ``{"kernels": [...]}``, then the last line
+               ``{"ok": true, "device": {...}}``.
+
+Any failed check exits non-zero before the last line.  Without CUDA, or
+without the repository's ``src/`` beside it, the script fails.
+"""
+from __future__ import annotations
+
+import gc
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
+             "False); this script only runs on the GPU")
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.bucketing import CPBuckets  # noqa: E402
+from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.serving.engine import NanoCPEngine  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet, dense): memory rate, and the peak
+# operation rate for the inputs' type (f32 outside the tensor cores, bf16
+# tensor cores).
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DEV = torch.device("cuda")
+
+PROMPT_LENS = (50, 300, 120, 40, 200, 2000)
+NEW_TOKENS = 16
+GAP_TOL = 1e-4        # teacher-forced argmax ties tolerated below this gap
+PROFILE_STEPS = 5
+SHIELD_CYCLES = 4_000_000   # about 2 ms of device spin at the H100's clocks
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    sys.exit(f"chip_smoke.py: FAIL: {msg}")
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------- #
+# timing
+# --------------------------------------------------------------------------- #
+_FLUSH = None
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    """Median device time of ``fn`` (CUDA events), with the 50 MB L2 cache
+    flushed before every timed launch, as the decode step finds it after
+    the other layers' weights went through.  A spin kernel of about 2 ms
+    runs before the start event, so the host has enqueued all of ``fn``
+    (wrapper checks, allocation, launch) before the device reaches it: the
+    events then time device work only, not the host's launch overhead."""
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        _FLUSH.zero_()
+        torch.cuda._sleep(SHIELD_CYCLES)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    t_b = nbytes / HBM_BYTES_S * 1e3
+    t_f = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def check_close(name, got, want, dtype) -> float:
+    tol = TOL[dtype]
+    err = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        fail(f"{name}: kernel disagrees with its plain version "
+             f"(max abs err {err}, tolerance {tol})")
+    return err
+
+
+# --------------------------------------------------------------------------- #
+# phase 2: kernels vs plain versions
+# --------------------------------------------------------------------------- #
+def paged_inputs(dtype, gen):
+    """The main path's paged call: TinyLlama at (I=4, TP=2) — every virtual
+    device's rows in one launch, pools flattened to I*tp*F' pages of 16
+    tokens, kg = 2 kv heads of hd 64 per device, G = 8 q heads per kv head;
+    shard lengths up to ~700 tokens (a 2000-token prompt over three
+    instances) and zero-length padding rows."""
+    I, tp, Fp, page, kg, hd, G = 4, 2, 257, 16, 2, 64, 8
+    rows, MB = 64, 44
+    P = I * tp * Fp
+    q = torch.randn(rows, kg * G, hd, device=DEV, generator=gen).to(dtype)
+    k = torch.randn(P, page, kg, hd, device=DEV, generator=gen).to(dtype)
+    v = torch.randn(P, page, kg, hd, device=DEV, generator=gen).to(dtype)
+    lengths = torch.randint(1, 701, (rows,), device=DEV, generator=gen,
+                            dtype=torch.int32)
+    lengths[::4] = 0
+    # each row reads pages of its own device's sub-pool
+    dev_of = torch.randint(0, I * tp, (rows, 1), device=DEV, generator=gen)
+    bt = (torch.randint(0, Fp - 1, (rows, MB), device=DEV, generator=gen)
+          + dev_of * Fp).to(torch.int32)
+    return q, k, v, bt, lengths
+
+
+def paged_cost(q, k, v, bt, lengths):
+    """Bytes the call must move (only the valid tokens' K/V) and its flops."""
+    Hkv, Dk, Dv = k.shape[2], k.shape[3], v.shape[3]
+    Hq = q.shape[1]
+    toks = int(lengths.sum())
+    kv_bytes = toks * Hkv * (Dk + Dv) * k.element_size()
+    out_bytes = q.shape[0] * Hq * (Dv * q.element_size() + 4)
+    by = nbytes(q, bt, lengths) + kv_bytes + out_bytes
+    return by, 2.0 * toks * Hq * (Dk + Dv)
+
+
+def flash_cost(q, k, v, kv_len, q_offset):
+    B, Sq, Hq, Dk = q.shape
+    Dv = v.shape[-1]
+    kl = int(kv_len[0]) if kv_len is not None else k.shape[1]
+    pairs = sum(min(r + q_offset + 1, kl) for r in range(Sq))
+    by = nbytes(q, k, v) + B * Sq * Hq * (Dv * q.element_size() + 4)
+    return by, 2.0 * B * Hq * pairs * (Dk + Dv)
+
+
+def paged_row(args, dtype, label: str) -> dict:
+    """Hold the paged kernel against its plain version on ``args`` and time
+    both; returns the phase's JSON row."""
+    dn = str(dtype).replace("torch.", "")
+    o, l = pa.paged_decode_attention(*args)
+    o2, l2 = ref.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    err = max(check_close(f"paged_decode {dn} {label} out", o, o2, dtype),
+              check_close(f"paged_decode {dn} {label} lse", l, l2, dtype))
+    ms = time_ms(lambda: pa.paged_decode_attention(*args))
+    plain = time_ms(lambda: ref.paged_decode_attention(*args))
+    b, f = paged_cost(*args)
+    bms, by = bound_ms(b, f, dtype)
+    q, k, _, _, lengths = args
+    return {"phase": "kernel", "name": "paged_decode", "dtype": dn,
+            "inputs": label,
+            "shape": {"rows": q.shape[0], "Hq": q.shape[1], "Hkv": k.shape[2],
+                      "hd": q.shape[2], "page": k.shape[1],
+                      "pages": k.shape[0], "max_len": int(lengths.max()),
+                      "kv_tokens": int(lengths.sum()),
+                      "zero_rows": int((lengths == 0).sum())},
+            "max_abs_err": err, "tol": TOL[dtype], "ms": ms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+
+
+def run_kernel_phase(gen) -> dict:
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        # --- paged decode ---
+        row = paged_row(paged_inputs(dtype, gen), dtype, "synthetic")
+        emit(row)
+        summary.setdefault("paged_decode", []).append(row)
+        # --- flash forward ---
+        for Sq, kvl, qo in ((50, None, 0), (300, None, 0), (2000, None, 0),
+                            (300, 200, 0), (256, None, 100)):
+            Skv = Sq + qo
+            q = torch.randn(1, Sq, 32, 64, device=DEV, generator=gen).to(dtype)
+            k = torch.randn(1, Skv, 4, 64, device=DEV, generator=gen).to(dtype)
+            v = torch.randn(1, Skv, 4, 64, device=DEV, generator=gen).to(dtype)
+            kl = (None if kvl is None else
+                  torch.tensor([kvl], dtype=torch.int32, device=DEV))
+            o, l = fa.flash_attention(q, k, v, kv_len=kl, q_offset=qo)
+            o2, l2 = ref.flash_attention(q, k, v, kv_len=kl, q_offset=qo)
+            torch.cuda.synchronize()
+            err = max(check_close(f"flash_fwd {dn} Sq={Sq} out", o, o2, dtype),
+                      check_close(f"flash_fwd {dn} Sq={Sq} lse", l, l2, dtype))
+            row = {"phase": "kernel", "name": "flash_fwd", "dtype": dn,
+                   "shape": {"B": 1, "Sq": Sq, "Skv": Skv, "Hq": 32, "Hkv": 4,
+                             "hd": 64, "kv_len": kvl, "q_offset": qo},
+                   "max_abs_err": err, "tol": TOL[dtype]}
+            if (Sq, kvl, qo) == (2000, None, 0):
+                row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v))
+                row["plain_ms"] = time_ms(lambda: ref.flash_attention(q, k, v))
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                row["library_ms"] = time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True))
+                b, f = flash_cost(q, k, v, kl, qo)
+                row["bound_ms"], row["bound_by"] = bound_ms(b, f, dtype)
+            emit(row)
+            summary.setdefault("flash_fwd", []).append(row)
+    return summary
+
+
+# --------------------------------------------------------------------------- #
+# phase 3: engine
+# --------------------------------------------------------------------------- #
+def teacher_forced_check(cfg, params, prompts, results, tag) -> int:
+    """Every transcript must equal the port's greedy forward: one forward
+    per request over prompt + transcript, argmax at every generated
+    position.  A divergence is tolerated only where the reference's top-2
+    logit gap is below GAP_TOL; it is printed with both values."""
+    ties = 0
+    for rid, prompt in enumerate(prompts):
+        toks = results[rid].tokens
+        if len(toks) != NEW_TOKENS:
+            fail(f"{tag}: request {rid} emitted {len(toks)} tokens")
+        seq = torch.as_tensor(np.concatenate([prompt, toks[:-1]]),
+                              device=DEV)[None]
+        with torch.no_grad():
+            logits, _ = transformer.forward(cfg, params, seq)
+        lg = logits[0, len(prompt) - 1:].float()
+        if not torch.isfinite(lg).all():
+            fail(f"{tag}: non-finite reference logits for request {rid}")
+        ref_tok = lg.argmax(-1).tolist()
+        for t, (got, want) in enumerate(zip(toks, ref_tok)):
+            if got == want:
+                continue
+            top2 = lg[t].topk(2).values
+            gap = float(top2[0] - top2[1])
+            diff = float(lg[t, want] - lg[t, got])
+            emit({"phase": "engine", "run": tag, "tie": True, "rid": rid,
+                  "pos": t, "engine": got, "reference": want,
+                  "top2_gap": gap, "logit_diff": diff})
+            if gap >= GAP_TOL:
+                fail(f"{tag}: request {rid} token {t}: engine {got} != "
+                     f"greedy {want} (top-2 gap {gap})")
+            ties += 1
+    return ties
+
+
+def make_engine(cfg, params, prompts, pipeline: bool) -> NanoCPEngine:
+    """The main path's engine: virtual (I=4, TP=2) mesh, the prompts queued."""
+    eng = NanoCPEngine(cfg, params, num_instances=4, instances_per_node=4,
+                       kv_capacity_tokens=4096, page_size=16, tp=2,
+                       buckets=CPBuckets(edges=(100, 256), degrees=(1, 2, 3)),
+                       pipeline=pipeline, device=DEV)
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=NEW_TOKENS)
+    return eng
+
+
+def run_engine(cfg, params, prompts, pipeline: bool) -> dict:
+    tag = "pipelined" if pipeline else "non-pipelined"
+    torch.cuda.reset_peak_memory_stats()
+    eng = make_engine(cfg, params, prompts, pipeline)
+    torch.cuda.synchronize()
+    pa.LAUNCHES = 0
+    fa.LAUNCHES = 0
+    step_ms, prefill_us, steady, host_us = [], 0.0, [], {}
+    t_run = time.perf_counter()
+    with torch.no_grad():
+        while eng.pending and len(step_ms) < 200:
+            t0 = time.perf_counter()
+            eng.step()
+            dt = (time.perf_counter() - t0) * 1e3
+            step_ms.append(dt)
+            if "prefill_us" in eng.timings:
+                prefill_us += eng.timings["prefill_us"]
+            elif "dispatch_us" in eng.timings:
+                steady.append(dt)
+                for k, v in eng.timings.items():
+                    host_us.setdefault(k, []).append(v)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = {"paged_decode": pa.LAUNCHES, "flash_fwd": fa.LAUNCHES}
+    steps = eng.hot_path_stats["steps"]
+    want = {"paged_decode": steps * cfg.num_layers,
+            "flash_fwd": len(prompts) * cfg.num_layers}
+    if launches != want:
+        fail(f"{tag}: launches {launches}, expected {want} "
+             f"(steps x layers, prompts x layers)")
+    if eng.aot.stats.donation_copies:
+        fail(f"{tag}: pools moved during a step: {eng.aot.stats.as_dict()}")
+    ties = teacher_forced_check(cfg, params, prompts, eng.results, tag)
+    decode_tokens = sum(len(r.tokens) - 1 for r in eng.results.values())
+    decode_s = sum(step_ms) / 1e3 - prefill_us / 1e6
+    row = {"phase": "engine", "run": tag, "requests": len(prompts),
+           "prompt_lens": list(PROMPT_LENS), "new_tokens": NEW_TOKENS,
+           "steps": steps, "launches": launches,
+           "median_steady_step_ms": statistics.median(steady) if steady else None,
+           "steady_steps": len(steady),
+           # host clock, median over steady steps: table lowering, upload,
+           # step enqueue (dispatch) and the wait for the previous step's
+           # tokens (harvest; in the pipelined run this is where the host
+           # waits for the device)
+           "steady_host_us": {k: statistics.median(v)
+                              for k, v in sorted(host_us.items())},
+           "prefill_ms_per_request": prefill_us / 1e3 / len(prompts),
+           "decode_tokens_per_s": decode_tokens / decode_s,
+           "run_s": run_s, "ties_tolerated": ties,
+           "hot_path_stats": eng.hot_path_stats,
+           "aot": eng.aot.stats.as_dict(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    emit(row)
+    del eng
+    gc.collect()        # the engine and its step cache form a cycle
+    torch.cuda.empty_cache()
+    return row
+
+
+def profile_engine(cfg, params, prompts) -> dict:
+    """A third, pipelined run of the same traffic.  During its first steps
+    it keeps a frozen copy of the inputs of the largest paged-decode call
+    the main path makes (most kv tokens); then ``torch.profiler`` traces
+    PROFILE_STEPS steady steps: device time by kernel, and the device's busy
+    share of the traced window (the profiler's own host overhead lengthens
+    the window, so the share is a lower bound)."""
+    eng = make_engine(cfg, params, prompts, pipeline=True)
+    captured = {"tokens": -1}
+    launch = pa.paged_decode_attention
+
+    def record(q, k, v, bt, lengths, *, scale=None):
+        tokens = int(lengths.sum())
+        if tokens > captured["tokens"]:
+            captured.update(tokens=tokens, args=tuple(
+                t.clone() for t in (q, k, v, bt, lengths)))
+        return launch(q, k, v, bt, lengths, scale=scale)
+
+    pa.paged_decode_attention = record
+    with torch.no_grad():
+        for _ in range(4):                  # admission + first decode steps
+            eng.step()
+    pa.paged_decode_attention = launch
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    with torch.no_grad():
+        eng.run()
+
+    def dev_us(e):
+        return float(e.self_device_time_total)
+
+    # kernel entries only: a CPU op's entry repeats its kernels' device time
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and dev_us(e) > 0]
+    device_us = sum(dev_us(e) for e in events)
+    top = sorted(events, key=dev_us, reverse=True)[:12]
+    row = {"phase": "profile", "run": "pipelined", "steps": PROFILE_STEPS,
+           "window_us": window_us, "device_us": device_us,
+           "device_busy_share": device_us / window_us,
+           "kernel_launches": sum(e.count for e in events),
+           "top_kernels": [{"name": e.key[:80], "count": e.count,
+                            "device_us": dev_us(e)} for e in top]}
+    emit(row)
+    del eng
+    gc.collect()        # the engine and its step cache form a cycle
+    torch.cuda.empty_cache()
+    return captured["args"]
+
+
+def main() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build.build_all()
+    build_s = time.perf_counter() - t0
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "kernel_build_s": build_s})
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    ksum = run_kernel_phase(gen)
+
+    cfg = get_config("tinyllama-1.1b")
+    params = transformer.init_params(cfg, seed=0, device=DEV,
+                                     dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (L,)) for L in PROMPT_LENS]
+    runs = [run_engine(cfg, params, prompts, pipeline=p) for p in (True, False)]
+    main_args = profile_engine(cfg, params, prompts)
+    # the paged kernel at the largest call the main path made (float32 pools)
+    main_row = paged_row(main_args, torch.float32, "main path")
+    emit(main_row)
+    ksum["paged_decode"].append(main_row)
+
+    main_run = runs[0]
+    kernels = []
+    for name, src, replaces in (
+            ("paged_decode", "src/repro_torch/csrc/paged_decode.cu",
+             "src/repro/kernels/paged_attention.py:36"),
+            ("flash_fwd", "src/repro_torch/csrc/flash_fwd.cu",
+             "src/repro/kernels/flash_attention.py:27")):
+        rows = ksum[name]
+        # the timing at the main path's shapes: the captured paged call, and
+        # the 2000-token prompt's prefill attention
+        timed = [r for r in rows if r["dtype"] == "float32" and "ms" in r][-1]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": main_run["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["dtype"] == "float32"),
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": timed["library_ms"]})
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,263 @@
+"""Model configuration dataclasses shared by every architecture.
+
+A single frozen ``ModelConfig`` describes any of the assigned architectures
+(dense GQA, MLA, MoE, SSM, hybrid, encoder-decoder).  Family-specific fields
+default to inert values so generic code can branch on ``cfg.family`` /
+feature predicates instead of isinstance checks.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass, field, replace
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    # -- identity ---------------------------------------------------------
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm | audio
+    # -- trunk ------------------------------------------------------------
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0              # 0 -> d_model // num_heads
+    d_ff: int = 0
+    vocab_size: int = 0
+    # -- attention --------------------------------------------------------
+    attention: str = "gqa"         # gqa | mla | none
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    # -- MLA (multi-head latent attention) --------------------------------
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # -- MoE ----------------------------------------------------------------
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_d_ff: int = 0              # 0 -> d_ff
+    num_shared_experts: int = 0
+    moe_every: int = 1             # MoE on layers with (idx % moe_every == moe_offset)
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+    # -- SSM (Mamba-2 / SSD) ------------------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 128
+    # -- hybrid (jamba) -----------------------------------------------------
+    attn_every: int = 0            # attention on layers with (idx % attn_every == attn_offset)
+    attn_offset: int = 0
+    # -- encoder-decoder ----------------------------------------------------
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    max_target_positions: int = 0  # decoder text positions (whisper: 448-ish)
+    frontend: str = "none"         # none | audio_stub | vq_stub  (modality stubs)
+    # -- misc -----------------------------------------------------------------
+    act: str = "silu"              # silu (gated) | gelu (plain, whisper)
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    rope: bool = True              # learned absolute positions if False (whisper)
+    # -- citation / provenance ----------------------------------------------
+    source: str = ""
+
+    # ------------------------------------------------------------------ #
+    # derived quantities
+    # ------------------------------------------------------------------ #
+    @property
+    def head_dim_(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a 128 multiple so TP-16 / MXU tiling is clean."""
+        return _round_up(self.vocab_size, 128)
+
+    @property
+    def moe_d_ff_(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
+    def is_mla(self) -> bool:
+        return self.attention == "mla"
+
+    @property
+    def has_attention(self) -> bool:
+        return self.attention != "none"
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    # SSM derived dims (Mamba-2 / SSD formulation)
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    def layer_kinds(self) -> list[dict]:
+        """Per-layer mixer/ffn kinds for one full stack (decoder trunk)."""
+        out = []
+        for i in range(self.num_layers):
+            if self.family in ("ssm",):
+                mixer = "ssm"
+            elif self.attn_every:  # hybrid: attention every `attn_every` layers
+                mixer = "attn" if (i % self.attn_every == self.attn_offset) else "ssm"
+            else:
+                mixer = "attn"
+            if self.is_moe and (i % self.moe_every == self.moe_offset):
+                ffn = "moe"
+            else:
+                ffn = "dense"
+            if self.family == "ssm":
+                ffn = "none"  # mamba2 blocks have no separate FFN
+            out.append({"mixer": mixer, "ffn": ffn})
+        return out
+
+    # ------------------------------------------------------------------ #
+    # block/scan structure: the trunk is `num_blocks` repeats of a block
+    # pattern of `block_period` layers (1 for uniform stacks).
+    # ------------------------------------------------------------------ #
+    @property
+    def block_period(self) -> int:
+        period = 1
+        if self.attn_every:
+            period = self.attn_every
+        if self.is_moe and self.moe_every > 1:
+            period = int(period * self.moe_every // math.gcd(period, self.moe_every))
+        return period
+
+    @property
+    def num_blocks(self) -> int:
+        assert self.num_layers % self.block_period == 0, (
+            f"{self.name}: num_layers={self.num_layers} not divisible by "
+            f"block_period={self.block_period}")
+        return self.num_layers // self.block_period
+
+    def block_pattern(self) -> list[dict]:
+        """Layer kinds within one repeating block."""
+        return self.layer_kinds()[: self.block_period]
+
+    # ------------------------------------------------------------------ #
+    # parameter counts (for roofline MODEL_FLOPS = 6*N*D)
+    # ------------------------------------------------------------------ #
+    def param_counts(self) -> dict:
+        """Returns dict(total=..., active=...) parameter counts (no embeds in
+        `body`, embeds reported separately)."""
+        D, V = self.d_model, self.padded_vocab
+        hd = self.head_dim_
+
+        def attn_params() -> int:
+            if self.attention == "mla":
+                p = 0
+                if self.q_lora_rank:
+                    p += D * self.q_lora_rank + self.q_lora_rank * self.num_heads * (
+                        self.qk_nope_head_dim + self.qk_rope_head_dim)
+                else:
+                    p += D * self.num_heads * (self.qk_nope_head_dim + self.qk_rope_head_dim)
+                p += D * (self.kv_lora_rank + self.qk_rope_head_dim)
+                p += self.kv_lora_rank * self.num_heads * (
+                    self.qk_nope_head_dim + self.v_head_dim)
+                p += self.num_heads * self.v_head_dim * D
+                return p
+            q = D * self.num_heads * hd
+            kv = 2 * D * self.num_kv_heads * hd
+            o = self.num_heads * hd * D
+            return q + kv + o
+
+        def dense_ffn() -> int:
+            mult = 3 if self.act == "silu" else 2  # gated vs plain
+            return mult * D * self.d_ff
+
+        def moe_ffn() -> tuple[int, int]:
+            per_expert = 3 * D * self.moe_d_ff_
+            total = self.num_experts * per_expert + D * self.num_experts
+            total += self.num_shared_experts * 3 * D * self.moe_d_ff_
+            active = (self.num_experts_per_tok + self.num_shared_experts) * per_expert \
+                + D * self.num_experts
+            return total, active
+
+        def ssm_params() -> int:
+            din, ns, nh = self.ssm_d_inner, self.ssm_state, self.ssm_num_heads
+            in_proj = D * (2 * din + 2 * ns + nh)  # z, x, B, C, dt
+            conv = (din + 2 * ns) * self.ssm_conv_width
+            out_proj = din * D
+            return in_proj + conv + out_proj + 2 * nh + din  # A, D, norm
+
+        total = active = 0
+        for kind in self.layer_kinds():
+            if kind["mixer"] == "attn":
+                a = attn_params()
+                total += a
+                active += a
+            else:
+                s = ssm_params()
+                total += s
+                active += s
+            if kind["ffn"] == "dense":
+                f = dense_ffn()
+                total += f
+                active += f
+            elif kind["ffn"] == "moe":
+                t, a = moe_ffn()
+                total += t
+                active += a
+        if self.is_encoder_decoder:
+            # encoder layers: self-attn + plain ffn; decoder adds cross-attn
+            enc = self.num_encoder_layers * (attn_params() + dense_ffn())
+            cross = self.num_layers * attn_params()
+            total += enc + cross
+            active += enc + cross
+        embed = V * D * (1 if self.tie_embeddings else 2)
+        return {"body_total": total, "body_active": active, "embed": embed,
+                "total": total + embed, "active": active + embed}
+
+
+@dataclass(frozen=True)
+class ShapeCfg:
+    """One assigned input-shape cell."""
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """A tiny same-family config for CPU smoke tests."""
+    base = dict(
+        num_layers=cfg.block_period * 2,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads else 0,
+        head_dim=16,
+        d_ff=128,
+        vocab_size=256,
+        name=cfg.name + "-smoke",
+    )
+    if cfg.attention == "mla":
+        base.update(q_lora_rank=32, kv_lora_rank=32, qk_nope_head_dim=16,
+                    qk_rope_head_dim=8, v_head_dim=16, head_dim=0)
+    if cfg.is_moe:
+        base.update(num_experts=4, num_experts_per_tok=min(cfg.num_experts_per_tok, 2),
+                    moe_d_ff=64)
+    if cfg.family in ("ssm", "hybrid"):
+        base.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=32)
+    if cfg.is_encoder_decoder:
+        base.update(num_encoder_layers=2, max_target_positions=64)
+    base.update(overrides)
+    return replace(cfg, **base)

@@ -1,0 +1,7 @@
+"""Hopper kernels for the decode and prefill hot spots, each beside its
+plain torch version (``ref``); ``ops`` dispatches by tensor device.
+
+  * ``paged_attention`` — paged decode attention with LSE (``csrc/paged_decode.cu``).
+  * ``flash_attention`` — causal flash-attention forward with LSE (``csrc/flash_fwd.cu``).
+  * ``build``           — nvcc build + ctypes loading of ``csrc/*.cu``.
+"""

@@ -1,0 +1,133 @@
+"""Decoder-only trunk: init + prefill forward for the dense family
+(port of ``repro/models/transformer.py``).
+
+The trunk is ``cfg.num_blocks`` repeats of a ``cfg.block_period``-layer
+block pattern; block parameters are stacked on a leading axis (the JAX
+package's ``params["blocks"]`` layout, which it ``lax.scan``s) and the
+forward loops over them.  MLA, MoE, SSM and encoder-decoder families raise
+``NotImplementedError`` (ROADMAP queue 1 items 9-12).
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import resolve_device
+from ..configs.base import ModelConfig
+from ..kernels import ops
+from . import attention as attn_mod
+from . import layers
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port serves the dense GQA family only (so far)."""
+    if cfg.is_mla:
+        raise NotImplementedError("MLA is not ported yet (ROADMAP queue 1 item 9)")
+    if cfg.is_moe:
+        raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1 item 10)")
+    if cfg.family in ("ssm", "hybrid") or not cfg.has_attention:
+        raise NotImplementedError("SSM/hybrid models are not ported yet "
+                                  "(ROADMAP queue 1 item 11)")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError("encoder-decoder models are not ported yet "
+                                  "(ROADMAP queue 1 item 12)")
+
+
+# --------------------------------------------------------------------------- #
+# init
+# --------------------------------------------------------------------------- #
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Random weights from a ``torch.Generator`` seeded with ``seed``.
+
+    Matrices are ``dtype`` (bf16 by default, as the JAX init makes them),
+    norm scales float32.  The numbers differ from the JAX init's; tests
+    convert JAX weights with ``repro_torch.params`` instead.
+    """
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kw = {"dtype": dtype, "device": dev}
+
+    def layer_params():
+        return {"ln1": layers.make_norm_params(cfg, cfg.d_model, dev),
+                "mixer": attn_mod.make_attn_params(gen, cfg, **kw),
+                "ln2": layers.make_norm_params(cfg, cfg.d_model, dev),
+                "ffn": layers.make_mlp_params(gen, cfg, **kw)}
+
+    pattern = cfg.block_pattern()
+    per_block = [[layer_params() for _ in pattern]
+                 for _ in range(cfg.num_blocks)]
+    stacked = [{grp: {name: torch.stack([blk[li][grp][name]
+                                         for blk in per_block])
+                      for name in per_block[0][li][grp]}
+                for grp in per_block[0][li]}
+               for li in range(len(pattern))]
+    return {"embed": layers.make_embed_params(gen, cfg, **kw),
+            "blocks": {"layers": stacked},
+            "final_norm": layers.make_norm_params(cfg, cfg.d_model, dev),
+            "head": layers.make_head_params(gen, cfg, **kw)}
+
+
+def block_slice(tree, i: int):
+    """Block ``i`` of a stacked parameter tree."""
+    if isinstance(tree, dict):
+        return {k: block_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [block_slice(v, i) for v in tree]
+    return tree[i]
+
+
+# --------------------------------------------------------------------------- #
+# forward (prefill)
+# --------------------------------------------------------------------------- #
+def apply_layer(cfg: ModelConfig, kind: dict, lp: dict, x: torch.Tensor,
+                positions: torch.Tensor, collect_kv: bool):
+    """One layer: pre-norm attention + pre-norm FFN with residuals.
+
+    Returns (x, aux) where aux holds the prefill cache material (k, v).
+    """
+    aux = {}
+    h = layers.apply_norm(cfg, lp["ln1"], x)
+    q, k, v = attn_mod.qkv_proj(cfg, lp["mixer"], h, positions)
+    if collect_kv:
+        aux["kv"] = (k, v)
+    o = ops.attention(q, k, v, causal=True)
+    B, S = h.shape[:2]
+    x = x + o.reshape(B, S, -1) @ lp["mixer"]["wo"]
+    h = layers.apply_norm(cfg, lp["ln2"], x)
+    x = x + layers.apply_mlp(cfg, lp["ffn"], h)
+    return x, aux
+
+
+def forward(cfg: ModelConfig, params: dict, tokens, *,
+            positions: torch.Tensor | None = None, collect_kv: bool = False,
+            device="cuda"):
+    """tokens [B, S] -> (logits [B, S, Vp], caches).
+
+    ``caches`` (with ``collect_kv``) is a list over the block pattern of
+    ``{"kv": (k, v)}`` with k/v stacked over blocks: [nb, B, S, Hkv, hd],
+    as the JAX scan stacks them; otherwise None.  ``params`` must live on
+    ``device``; the tokens are moved there.
+    """
+    check_supported(cfg)
+    tokens = torch.as_tensor(tokens, device=resolve_device(device))
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    x = layers.embed_tokens(params["embed"], tokens)
+    pattern = cfg.block_pattern()
+    auxes = [[] for _ in pattern]
+    for bi in range(cfg.num_blocks):
+        bp = block_slice(params["blocks"], bi)
+        for li, kind in enumerate(pattern):
+            x, aux = apply_layer(cfg, kind, bp["layers"][li], x, positions,
+                                 collect_kv)
+            auxes[li].append(aux)
+    x = layers.apply_norm(cfg, params["final_norm"], x)
+    logits = layers.apply_head(cfg, params["head"], params["embed"], x)
+    if not collect_kv:
+        return logits, None
+    caches = [{"kv": tuple(torch.stack([a["kv"][j] for a in per_layer])
+                           for j in range(2))}
+              for per_layer in auxes]
+    return logits, caches

@@ -1,0 +1,477 @@
+"""NanoCP decode engine, main path (port of ``repro/serving/engine.py``).
+
+Drives the stack end to end on one GPU: ENQUEUE -> dual-balanced
+scheduling -> prefill (flash kernel) + in-place KV scatter into the paged
+pools -> routing-table lowering -> per-bucket step lookup -> the four-phase
+DCP decode step over the virtual (instance, tp) mesh (paged kernel) ->
+sampling -> finish.
+
+Decode hot path:
+
+  * The serve state lives on the device for the engine's lifetime and every
+    step updates the pools in place (``AOTGraphEngine.note_donation``
+    audits that the pools' ``data_ptr`` never moves).
+  * Iterations are pipelined one step ahead: ``step`` lowers iteration t's
+    tables while the device still computes iteration t-1 (PyTorch enqueues
+    CUDA work asynchronously), then harvests t-1's tokens — copied at
+    dispatch into pinned host memory with ``non_blocking=True`` and waited
+    for on a CUDA event — patches the per-slot input tokens and dispatches
+    t.  ``pipeline=False`` dispatches and harvests in the same call.
+  * Finish-by-length is applied at dispatch time; an EOS finish is seen one
+    step late, and with ``eos_token`` set the step's device-side stop-token
+    mask (``DecodeDims.eos``) sends the speculative step's KV append to the
+    scratch frame, so an EOS finish leaves exactly its real tokens' KV.
+
+Escalations and relaxations the scheduler plans are applied by the live
+KV re-shard (``migrate.KVReshard``): the reference's main path relaxes
+within its first decode steps.
+
+Not ported yet, each raising ``NotImplementedError`` where the reference
+would act: the dense backend (ROADMAP queue 1 item 4); data-plane copies,
+spill relief, OOM finishes, failure and drain (item 7); quantized
+pools (item 8); MLA, MoE, SSM and encoder-decoder models (items 9-12); the
+prefix cache, admission control and prefill cells (item 13).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..configs.base import ModelConfig
+from ..core import dcp, migrate, routing
+from ..core.aot import AOTGraphEngine
+from ..core.bucketing import CPBuckets, DEFAULT_BUCKETS, ShapeBuckets
+from ..core.comm import node_local_rounds
+from ..core.page_table import KVSpillError
+from ..core.scheduler import BaseScheduler, DualBalancedScheduler
+from ..core.state import ClusterState, Request
+from ..models import transformer
+
+
+@dataclass
+class GenResult:
+    rid: int
+    prompt: list
+    tokens: list = field(default_factory=list)
+
+
+@dataclass
+class _Inflight:
+    """One dispatched-but-unharvested decode iteration."""
+    host: torch.Tensor           # [I, M] tokens (pinned on CUDA), filled async
+    event: object                # CUDA event recorded after the copy, or None
+    # (rid, request, instance, slot, is_last) snapshot at dispatch time
+    slots: list
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet "
+                               f"(ROADMAP queue 1 item {item})")
+
+
+class NanoCPEngine:
+    def __init__(self, cfg: ModelConfig, params: dict, *,
+                 num_instances: int, instances_per_node: int,
+                 kv_capacity_tokens: int, tp: int, page_size: int = 16,
+                 backend: str = "routed",
+                 scheduler: BaseScheduler | None = None,
+                 buckets: CPBuckets = DEFAULT_BUCKETS,
+                 shape_buckets: ShapeBuckets | None = None,
+                 eos_token: int | None = None,
+                 max_slots_per_instance: int = 16,
+                 pipeline: bool = True,
+                 audit_donation_every_step: bool = False,
+                 admission=None, prefix_cache: bool = False,
+                 prefill_cells: int = 0, kv_dtype: str = "bf16",
+                 device="cuda"):
+        """``params``: prefill params (``models.transformer`` layout) on
+        ``device``.  The virtual mesh is ``num_instances`` x ``tp``.  Pools
+        are float32, as the reference engine allocates them."""
+        transformer.check_supported(cfg)
+        if backend != "routed":
+            raise _not_ported(f"backend {backend!r}", 4)
+        if kv_dtype != "bf16":
+            raise _not_ported(f"kv_dtype {kv_dtype!r}", 8)
+        if admission is not None:
+            raise _not_ported("SLO admission control", 13)
+        if prefix_cache:
+            raise _not_ported("the prefix cache", 13)
+        if prefill_cells:
+            raise _not_ported("disaggregated prefill cells", 13)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.tp = tp
+        self.eos = eos_token
+        self.pipeline = pipeline
+        _, _, ps = dcp.attn_tp_geometry(cfg, tp)
+        self.cluster = ClusterState(num_instances=num_instances,
+                                    instances_per_node=instances_per_node,
+                                    kv_capacity_tokens=kv_capacity_tokens,
+                                    page_size=page_size, kv_stripes=ps)
+        self.scheduler = scheduler or DualBalancedScheduler(
+            buckets=buckets, allow_rebalance=True,
+            max_batch_per_instance=max_slots_per_instance, has_kv=True,
+            # one decode page of growth headroom on every MoE binding at
+            # admission so the first appended tokens never spill
+            kv_reserve=page_size, allow_escalation=True)
+        self.scheduler.prefix_cache = None
+        # the data plane's rotation window is the CLUSTER ring
+        ring = self.cluster.window
+        self.shape_buckets = shape_buckets or ShapeBuckets(window=ring)
+        self.params = params
+        self._dims0 = dcp.DecodeDims(
+            M=max_slots_per_instance, S=0, N=1, MB=4, W=ring,
+            num_frames=self.cluster.page_table.frames_per_instance + 1,
+            page=page_size, data_size=num_instances, tp=tp, backend=backend,
+            eos=-1 if eos_token is None else int(eos_token),
+            kv_dtype=kv_dtype)
+        self.decode_params = dcp.to_decode_params(cfg, params, tp)
+        self.state = dcp.init_serve_state(cfg, self._dims0, num_instances,
+                                          dtype=torch.float32,
+                                          device=self.device)
+        self.aot = AOTGraphEngine(self._build_step,
+                                  audit_every_step=audit_donation_every_step,
+                                  r_ladder=self._r_ladder(ring,
+                                                          instances_per_node))
+        self._scatter = migrate.PrefillScatter(cfg, self._dims0, num_instances)
+        self._reshard = migrate.KVReshard(self._scatter)
+        self._arena = routing.TableArena()
+        self._dev_tables = routing.DeviceTables(self.device)
+        self._tok_host: dict = {}        # [I, M] shape -> pinned host buffer
+        self._event = (torch.cuda.Event() if self.device.type == "cuda"
+                       else None)
+        self.next_tok: dict = {}
+        self.results: dict = {}
+        self._prompts: dict = {}
+        self.finished: list = []
+        self.iterations = 0
+        self._inflight: _Inflight | None = None
+        self._t0 = time.monotonic()
+        # hot-path introspection (tests, chip_smoke.py)
+        self.timings: dict = {}
+        self.last_bucket: tuple | None = None
+        self.last_rounds_used: int = 0
+        self.hot_path_stats: dict = {
+            "steps": 0, "async_token_fetches": 0, "speculative_slots": 0,
+            "prefill_eos_finishes": 0, "escalations": 0, "relaxations": 0,
+            "relax_tokens": 0, "reshard_tokens": 0}
+
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _r_ladder(ring: int, node_width: int) -> tuple | None:
+        """Quantisation grid for rounds-used: pow2 steps plus the node-local
+        bound (and the full ring as the ceiling)."""
+        if ring <= 1:
+            return None
+        lad = {1, ring - 1}
+        v = 1
+        while v < ring - 1:
+            v *= 2
+            lad.add(v)
+        nl = node_local_rounds(node_width)
+        if nl >= 1:
+            lad.add(nl)
+        return tuple(sorted(g for g in lad if 1 <= g <= ring - 1))
+
+    def _now(self) -> float:
+        return time.monotonic() - self._t0
+
+    def add_request(self, prompt_tokens, max_new_tokens: int,
+                    now: float | None = None) -> int:
+        now = self._now() if now is None else now
+        rid = len(self._prompts)
+        self._prompts[rid] = list(map(int, prompt_tokens))
+        self.cluster.enqueue(Request(rid=rid, prompt_len=len(prompt_tokens),
+                                     max_new_tokens=max_new_tokens,
+                                     arrival=now), now)
+        self.results[rid] = GenResult(rid, self._prompts[rid])
+        return rid
+
+    # -- reference entry points outside the main path ------------------- #
+    def add_audio_request(self, *args, **kwargs):
+        raise _not_ported("encoder-decoder (whisper) serving", 12)
+
+    def drain_instance(self, instance: int, force: bool = False):
+        raise _not_ported("instance drain (live evacuation)", 7)
+
+    def compact(self):
+        raise _not_ported("compaction (forced relaxation pass)", 7)
+
+    def fail_instance(self, instance: int, now: float | None = None):
+        raise _not_ported("instance failure recovery", 13)
+
+    def join_instance(self, instance: int, prewarm: bool = True):
+        raise _not_ported("elastic instance join", 13)
+
+    def fork_request(self, parent_rid: int, max_new_tokens: int, **kwargs):
+        raise _not_ported("request fork (prefix-cache CoW)", 13)
+
+    # ------------------------------------------------------------------ #
+    def _build_step(self, key):
+        M, S, MB, W, R = key[:5]
+        N = M + (W - 1) * S
+        d = dcp.DecodeDims(M=M, S=S, N=N, MB=MB, W=W,
+                           num_frames=self._dims0.num_frames,
+                           page=self._dims0.page,
+                           data_size=self.cluster.num_instances, tp=self.tp,
+                           backend=self._dims0.backend, eos=self._dims0.eos,
+                           rounds_used=R, kv_dtype=self._dims0.kv_dtype)
+        I = self.cluster.num_instances
+        table_shapes = {
+            "slot_rid": (I, M), "slot_token": (I, M), "slot_pos": (I, M),
+            "slot_active": (I, M), "append_frame": (I, M),
+            "append_off": (I, M), "q_send_idx": (I, W - 1, S),
+            "q_recv_slot": (I, W - 1, S), "work_src": (I, N),
+            "work_bt": (I, N, MB), "work_len": (I, N),
+            "ret_send_idx": (I, W - 1, S), "merge_src": (I, M, W),
+            "merge_round": (I, M, W), "merge_peer_row": (I, M, W),
+        }
+        return dcp.build_decode_step(self.cfg, d), table_shapes
+
+    # ------------------------------------------------------------------ #
+    def _prefill_batch(self, reqs: list, now: float) -> list:
+        """Prefill admitted requests (flash kernel on CUDA) and scatter their
+        KV into the pools with ONE in-place call.  The first generated token
+        is sampled from the prefill logits; one batched readback serves the
+        whole batch.  Returns the requests finished by a prefill-EOS."""
+        ps, khs = self._scatter.ps, self._scatter.khs
+        page = self._dims0.page
+        kv_k, kv_v, kv_coords, firsts = [], [], [], []
+        for req in reqs:
+            toks = torch.as_tensor(self._prompts[req.rid],
+                                   device=self.device)[None, :]
+            logits, caches = transformer.forward(self.cfg, self.params, toks,
+                                                 collect_kv=True,
+                                                 device=self.device)
+            firsts.append(logits[0, -1].argmax())
+            # [nb, na, T, Hkv, hd] -> khs groups of kg heads (flattened)
+            k3 = torch.stack([c["kv"][0][:, 0] for c in caches], dim=1)
+            v3 = torch.stack([c["kv"][1][:, 0] for c in caches], dim=1)
+            kv_k.append(k3.reshape(*k3.shape[:3], khs, -1))
+            kv_v.append(v3.reshape(*v3.shape[:3], khs, -1))
+            kv_coords.append(migrate.prefill_coords(self.cluster, req.rid,
+                                                    page, ps))
+        eos_done = self._record_first_tokens(
+            reqs, torch.stack(firsts).tolist(), now)
+        self._scatter.scatter_kv(self.state, torch.cat(kv_k, dim=2),
+                                 torch.cat(kv_v, dim=2),
+                                 np.concatenate(kv_coords, axis=1))
+        return self._finish_prefill_eos(eos_done, now)
+
+    def _record_first_tokens(self, reqs: list, firsts: list, now: float):
+        """Record the prefill-sampled first tokens; returns the requests
+        whose first token is already EOS."""
+        eos_done = []
+        for req, first in zip(reqs, firsts):
+            first = int(first)
+            self.next_tok[req.rid] = first
+            self.results[req.rid].tokens.append(first)
+            req.token_times.append(now)
+            if self.eos is not None and first == self.eos:
+                eos_done.append(req)
+        return eos_done
+
+    def _finish_prefill_eos(self, reqs: list, now: float) -> list:
+        """EOS sampled straight from the prefill logits: the request is done
+        before its first decode iteration (zero decode KV appends)."""
+        for req in reqs:
+            self.cluster.finish(req, now)
+            self.finished.append(req)
+            self.hot_path_stats["prefill_eos_finishes"] += 1
+        return reqs
+
+    def _apply_escalations(self, escalations: list) -> None:
+        """Move the KV of this step's escalations and relaxations (their
+        page-table bookkeeping already happened inside the scheduler) with
+        one batched in-place re-shard, before this step's admissions
+        scatter into possibly just-freed frames."""
+        if not escalations:
+            return
+        t0 = time.perf_counter()
+        src = np.concatenate([e.src_coords for e in escalations], axis=1)
+        dst = np.concatenate([e.dst_coords for e in escalations], axis=1)
+        self._reshard(self.state, src, dst)
+        relaxed = [e for e in escalations
+                   if getattr(e, "is_relaxation", False)]
+        self.hot_path_stats["escalations"] += len(escalations) - len(relaxed)
+        self.hot_path_stats["relaxations"] += len(relaxed)
+        self.hot_path_stats["relax_tokens"] += sum(e.tokens_moved
+                                                   for e in relaxed)
+        self.hot_path_stats["reshard_tokens"] += int(src.shape[1])
+        self.timings["reshard_us"] = (time.perf_counter() - t0) * 1e6
+
+    @staticmethod
+    def _check_plan(plan) -> None:
+        """Besides admissions, escalations and relaxations, the scheduler's
+        plans need movement paths that are not ported yet."""
+        if plan.copies:
+            raise _not_ported("data-plane KV copies (CoW / hot-prefix "
+                              "replication)", 7)
+        if plan.staged:
+            raise _not_ported("prefill-cell staging", 13)
+        if plan.rejected or plan.shed or plan.preemptions:
+            raise _not_ported("SLO admission outcomes", 13)
+
+    # ------------------------------------------------------------------ #
+    def _harvest(self, now: float) -> list:
+        """Wait for the in-flight iteration's tokens (copied to the host at
+        dispatch), record them, and apply finishes."""
+        infl = self._inflight
+        if infl is None:
+            return []
+        self._inflight = None
+        t0 = time.perf_counter()
+        if infl.event is not None:
+            infl.event.synchronize()
+        toks = infl.host.numpy()
+        self.timings["harvest_us"] = (time.perf_counter() - t0) * 1e6
+        self.hot_path_stats["async_token_fetches"] += 1
+        done = []
+        for rid, req, i, b, last in infl.slots:
+            t = int(toks[i, b])
+            self.results[rid].tokens.append(t)
+            self.next_tok[rid] = t
+            req.token_times.append(now)
+            if last:
+                req.finish_time = now
+                self.finished.append(req)
+                done.append(req)
+            elif self.eos is not None and t == self.eos:
+                # under the lookahead pipeline the request is already
+                # lowered into the next iteration: one speculative slot whose
+                # input is patched to the stop token (device-side mask)
+                if rid in self.cluster.active:
+                    self.cluster.finish(req, now)
+                    if self.pipeline:
+                        self.hot_path_stats["speculative_slots"] += 1
+                    self.finished.append(req)
+                    done.append(req)
+        return done
+
+    def _start_token_copy(self, toks: torch.Tensor):
+        """Device tokens -> host: pinned buffer + non-blocking copy + event
+        on CUDA; the CPU result is already on the host."""
+        if self.device.type != "cuda":
+            return toks, None
+        host = self._tok_host.get(tuple(toks.shape))
+        if host is None:
+            host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+            self._tok_host[tuple(toks.shape)] = host
+        host.copy_(toks, non_blocking=True)
+        self._event.record()
+        return host, self._event
+
+    # ------------------------------------------------------------------ #
+    def step(self, now: float | None = None) -> list:
+        """One scheduling+decode iteration, pipelined one step ahead.
+
+        Order: schedule -> prefill + in-place scatter -> lower routing
+        tables -> harvest the in-flight iteration's tokens -> patch input
+        tokens -> upload tables -> dispatch this iteration.  Returns the
+        requests whose completion became visible during this call.
+        """
+        t_step = time.perf_counter()
+        now = self._now() if now is None else now
+        self.timings = {}
+        plan = self.scheduler.schedule(self.cluster, now)
+        self._check_plan(plan)
+        self._apply_escalations(plan.escalations + plan.relaxations)
+        prefill_done = []
+        if plan.admitted:
+            t0 = time.perf_counter()
+            prefill_done = self._prefill_batch(plan.admitted, now)
+            self.timings["prefill_us"] = (time.perf_counter() - t0) * 1e6
+        if not self.cluster.active:
+            return prefill_done + self._harvest(now)
+
+        # -- lower THIS iteration's tables while the device computes the
+        #    previous one (routing never depends on token VALUES) ----------
+        t0 = time.perf_counter()
+        try:
+            tbl = routing.lower_plan(self.cluster, plan,
+                                     buckets=self.shape_buckets,
+                                     append_tokens=True,
+                                     next_tokens=self.next_tok,
+                                     arena=self._arena)
+        except KVSpillError as err:
+            raise _not_ported("KV spill relief (escalation / OOM finish)",
+                              7) from err
+        key = self.aot.quantise(tbl.M, tbl.S, tbl.MB, tbl.W, tbl.R)
+        if key[2] != tbl.MB:
+            raise RuntimeError(f"bucket MB {key[2]} != table MB {tbl.MB}")
+        self.timings["lower_us"] = (time.perf_counter() - t0) * 1e6
+        t0 = time.perf_counter()
+        fn = self.aot.lookup_key(key)
+        self.timings["lookup_us"] = (time.perf_counter() - t0) * 1e6
+
+        # -- harvest the previous iteration ---------------------------------
+        slots_at_lower = ({rid: self.cluster.slot_map[rid]
+                           for rid in self.cluster.active}
+                          if self.eos is not None and self.pipeline else None)
+        done = prefill_done + self._harvest(now)
+
+        # -- patch per-slot input tokens now that they are all known -------
+        for rid in self.cluster.active:
+            i, b = self.cluster.slot_map[rid]
+            tbl.slot_token[i, b] = self.next_tok[rid]
+        if slots_at_lower is not None:
+            # EOS finishes discovered at this harvest are already lowered
+            # into THIS iteration: feed the stop token as their input so the
+            # device-side check masks the KV append and the sampled output
+            for req in done:
+                loc = slots_at_lower.get(req.rid)
+                if loc is not None:
+                    tbl.slot_token[loc[0], loc[1]] = self.eos
+        t0 = time.perf_counter()
+        tbl_dev = routing.as_device_arrays(tbl, self._dev_tables)
+        self.timings["tables_us"] = (time.perf_counter() - t0) * 1e6
+
+        # -- dispatch (async on CUDA) + start the token readback copy -------
+        t0 = time.perf_counter()
+        check = self.aot.should_audit_donation()
+        in_ptrs = self.aot.buffer_ptrs(self.state) if check else None
+        self.state, toks, _ = fn(self.decode_params, self.state, tbl_dev)
+        host, event = self._start_token_copy(toks)
+        self.timings["dispatch_us"] = (time.perf_counter() - t0) * 1e6
+        if check:
+            self.aot.note_donation(in_ptrs, self.state)
+
+        # -- dispatch-time bookkeeping: length-based finishes are
+        #    deterministic, so free their pages/slots right away ------------
+        snapshot, length_done = [], []
+        for rid in list(self.cluster.active):
+            req = self.cluster.active[rid]
+            i, b = self.cluster.slot_map[rid]
+            req.generated += 1
+            last = len(self.results[rid].tokens) + 1 >= req.max_new_tokens
+            snapshot.append((rid, req, i, b, last))
+            if last:
+                length_done.append(req)
+        for req in length_done:
+            self.cluster.finish(req, now)
+        self._inflight = _Inflight(host, event, snapshot)
+        self.iterations += 1
+        self.last_bucket = key
+        self.last_rounds_used = tbl.R
+        self.hot_path_stats["steps"] += 1
+        if not self.pipeline:
+            done += self._harvest(now)
+        self.timings["step_us"] = (time.perf_counter() - t_step) * 1e6
+        return done
+
+    @property
+    def pending(self) -> bool:
+        """Whether requests are waiting, decoding or not yet harvested."""
+        return bool(self.cluster.active or self.cluster.waiting
+                    or self._inflight is not None)
+
+    def run(self, max_iters: int = 1000) -> dict:
+        it = 0
+        while self.pending and it < max_iters:
+            self.step()
+            it += 1
+        return self.results
