@@ -10,7 +10,9 @@ Phases, each printing one JSON line:
                the card, in float32 (atol = rtol = 1e-4) and bfloat16
                (atol = rtol = 2e-2), at the main path's shapes; kernel,
                plain and library device times (CUDA events, L2 flushed
-               between launches) beside the bound.
+               between launches) beside the bound.  The paged kernel also
+               runs on fp8 and int8 quantized pages with per-page scales,
+               for float32 and bfloat16 queries (same tolerances).
   3. engine  — full-width TinyLlama-1.1B (random float32 weights, seed 0)
                through NanoCPEngine on a virtual (I=4, TP=2) mesh, pipelined
                and not; every transcript is checked teacher-forced against
@@ -20,7 +22,19 @@ Phases, each printing one JSON line:
                (device time by kernel, busy share, launches), and the paged
                kernel re-checked and re-timed on the largest call the main
                path made.
-  5. summary — ``{"kernels": [...]}``, then the last line
+  5. quant   — the same engine and traffic with fp8, then int8 KV pools
+               (codes plus per-page scales), pipelined, held to the
+               reference's tolerance contract against the greedy forward
+               teacher-forced on the engine's transcript: |dlogit| <= 1.5
+               (fp8) / 0.5 (int8) at every decode step, an argmax miss only
+               where the reference's top-2 margin is within that bound, such
+               near-ties at most half the steps.  Every paged launch must be
+               the quantized variant.  The quantized kernel is re-checked and
+               re-timed on the largest call each run made.
+  6. escalate — fp8 pools, one 40-token prompt decoding 24 tokens across a
+               CP bucket edge at 48 on a (2, 2) mesh: the live re-shard moves
+               quantized KV with its scales; the same contract holds.
+  7. summary — ``{"kernels": [...]}``, then the last line
                ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
@@ -45,8 +59,8 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.bucketing import CPBuckets  # noqa: E402
-from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.core.bucketing import CPBuckets, ShapeBuckets  # noqa: E402
+from repro_torch.kernels import build, quant, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -54,7 +68,7 @@ from repro_torch.serving.engine import NanoCPEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, and the peak
 # operation rate for the inputs' type (f32 outside the tensor cores, bf16
-# tensor cores).
+# tensor cores).  A quantized paged call takes its products in q's type.
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -62,6 +76,9 @@ DEV = torch.device("cuda")
 
 PROMPT_LENS = (50, 300, 120, 40, 200, 2000)
 NEW_TOKENS = 16
+# the reference's quantized-serving contract (tests/integration/engine_quant.py)
+LOGIT_TOL = {"fp8": 1.5, "int8": 0.5}
+CAPTURE_STEPS = 4     # steps whose paged calls are inspected (they sync)
 GAP_TOL = 1e-4        # teacher-forced argmax ties tolerated below this gap
 PROFILE_STEPS = 5
 SHIELD_CYCLES = 4_000_000   # about 2 ms of device spin at the H100's clocks
@@ -157,12 +174,26 @@ def paged_inputs(dtype, gen):
     return q, k, v, bt, lengths
 
 
-def paged_cost(q, k, v, bt, lengths):
-    """Bytes the call must move (only the valid tokens' K/V) and its flops."""
-    Hkv, Dk, Dv = k.shape[2], k.shape[3], v.shape[3]
+def quantize_pages(args, kv_dtype):
+    """The float pages of a paged call as codes with per-page scales."""
+    q, k, v, bt, lengths = args[:5]
+    qk = []
+    for x in (k, v):
+        sc = quant.amax_scale(x.float().reshape(x.shape[0], -1), kv_dtype)
+        qk += [quant.quantize(x, sc[:, None, None, None], kv_dtype), sc]
+    return (q, qk[0], qk[2], bt, lengths, qk[1], qk[3])
+
+
+def paged_cost(q, k, v, bt, lengths, k_scale=None, v_scale=None):
+    """Bytes the call must move (only the valid tokens' K/V, and for a
+    quantized pool the two scales of every page a row reads) and its
+    flops."""
+    Hkv, Dk, Dv, page = k.shape[2], k.shape[3], v.shape[3], k.shape[1]
     Hq = q.shape[1]
     toks = int(lengths.sum())
     kv_bytes = toks * Hkv * (Dk + Dv) * k.element_size()
+    if k_scale is not None:
+        kv_bytes += 2 * 4 * int(((lengths + page - 1) // page).sum())
     out_bytes = q.shape[0] * Hq * (Dv * q.element_size() + 4)
     by = nbytes(q, bt, lengths) + kv_bytes + out_bytes
     return by, 2.0 * toks * Hq * (Dk + Dv)
@@ -177,22 +208,32 @@ def flash_cost(q, k, v, kv_len, q_offset):
     return by, 2.0 * B * Hq * pairs * (Dk + Dv)
 
 
+def paged_variant(k) -> str:
+    """The kernel's name in the summary: its page type when quantized."""
+    return {torch.float8_e4m3fn: "paged_decode_fp8",
+            torch.int8: "paged_decode_int8"}.get(k.dtype, "paged_decode")
+
+
 def paged_row(args, dtype, label: str) -> dict:
-    """Hold the paged kernel against its plain version on ``args`` and time
-    both; returns the phase's JSON row."""
+    """Hold the paged kernel against its plain version on ``args`` (q, k, v,
+    block tables, lengths[, k_scale, v_scale]) and time both; returns the
+    phase's JSON row.  ``dtype`` is q's type, which sets the tolerance."""
     dn = str(dtype).replace("torch.", "")
-    o, l = pa.paged_decode_attention(*args)
-    o2, l2 = ref.paged_decode_attention(*args)
+    q, k, v, bt, lengths = args[:5]
+    kw = {} if len(args) == 5 else {"k_scale": args[5], "v_scale": args[6]}
+    name = paged_variant(k)
+    o, l = pa.paged_decode_attention(q, k, v, bt, lengths, **kw)
+    o2, l2 = ref.paged_decode_attention(q, k, v, bt, lengths, **kw)
     torch.cuda.synchronize()
-    err = max(check_close(f"paged_decode {dn} {label} out", o, o2, dtype),
-              check_close(f"paged_decode {dn} {label} lse", l, l2, dtype))
-    ms = time_ms(lambda: pa.paged_decode_attention(*args))
-    plain = time_ms(lambda: ref.paged_decode_attention(*args))
+    err = max(check_close(f"{name} {dn} {label} out", o, o2, dtype),
+              check_close(f"{name} {dn} {label} lse", l, l2, dtype))
+    ms = time_ms(lambda: pa.paged_decode_attention(q, k, v, bt, lengths, **kw))
+    plain = time_ms(lambda: ref.paged_decode_attention(q, k, v, bt, lengths,
+                                                       **kw))
     b, f = paged_cost(*args)
     bms, by = bound_ms(b, f, dtype)
-    q, k, _, _, lengths = args
-    return {"phase": "kernel", "name": "paged_decode", "dtype": dn,
-            "inputs": label,
+    return {"phase": "kernel", "name": name, "dtype": dn,
+            "page_dtype": str(k.dtype).replace("torch.", ""), "inputs": label,
             "shape": {"rows": q.shape[0], "Hq": q.shape[1], "Hkv": k.shape[2],
                       "hd": q.shape[2], "page": k.shape[1],
                       "pages": k.shape[0], "max_len": int(lengths.max()),
@@ -207,10 +248,13 @@ def run_kernel_phase(gen) -> dict:
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
-        # --- paged decode ---
-        row = paged_row(paged_inputs(dtype, gen), dtype, "synthetic")
-        emit(row)
-        summary.setdefault("paged_decode", []).append(row)
+        # --- paged decode: pages in q's type, then fp8 and int8 codes ---
+        args = paged_inputs(dtype, gen)
+        for a in (args, quantize_pages(args, "fp8"),
+                  quantize_pages(args, "int8")):
+            row = paged_row(a, dtype, "synthetic")
+            emit(row)
+            summary.setdefault(row["name"], []).append(row)
         # --- flash forward ---
         for Sq, kvl, qo in ((50, None, 0), (300, None, 0), (2000, None, 0),
                             (300, 200, 0), (256, None, 100)):
@@ -280,70 +324,204 @@ def teacher_forced_check(cfg, params, prompts, results, tag) -> int:
     return ties
 
 
-def make_engine(cfg, params, prompts, pipeline: bool) -> NanoCPEngine:
-    """The main path's engine: virtual (I=4, TP=2) mesh, the prompts queued."""
-    eng = NanoCPEngine(cfg, params, num_instances=4, instances_per_node=4,
-                       kv_capacity_tokens=4096, page_size=16, tp=2,
-                       buckets=CPBuckets(edges=(100, 256), degrees=(1, 2, 3)),
-                       pipeline=pipeline, device=DEV)
+def quant_contract(cfg, params, prompts, eng, kv_dtype: str, tag: str,
+                   new_tokens: int) -> dict:
+    """The reference's contract for quantized pools (engine_quant.py): the
+    first token equals greedy forward's; every decode step's logits are
+    within LOGIT_TOL of the forward teacher-forced on the engine's
+    transcript; an emitted token differs from the forward's argmax only
+    where its top-2 margin is within the bound, and such near-ties are at
+    most half the steps."""
+    tol = LOGIT_TOL[kv_dtype]
+    worst, ties, total = 0.0, 0, 0
+    for rid, prompt in enumerate(prompts):
+        toks = eng.results[rid].tokens
+        if len(toks) != new_tokens:
+            fail(f"{tag}: request {rid} emitted {len(toks)} tokens")
+        seq = torch.as_tensor(np.concatenate([prompt, toks[:-1]]),
+                              device=DEV)[None]
+        with torch.no_grad():
+            logits, _ = transformer.forward(cfg, params, seq)
+        ref_lg = logits[0, len(prompt) - 1:].float()            # [new, V]
+        if not torch.isfinite(ref_lg).all():
+            fail(f"{tag}: non-finite reference logits for request {rid}")
+        if toks[0] != int(ref_lg[0].argmax()):
+            fail(f"{tag}: request {rid} first token {toks[0]} != greedy "
+                 f"{int(ref_lg[0].argmax())}")
+        steps = eng.step_logits.get(rid, [])
+        if len(steps) != new_tokens - 1:
+            fail(f"{tag}: request {rid} kept {len(steps)} step logits")
+        got = torch.as_tensor(np.stack(steps), device=DEV)[:, :cfg.vocab_size]
+        ref_s = ref_lg[1:]
+        if not torch.isfinite(got).all():
+            fail(f"{tag}: non-finite engine logits for request {rid}")
+        delta = (got - ref_s).abs().amax(dim=-1)
+        worst = max(worst, float(delta.max()))
+        if bool((delta > tol).any()):
+            j = int(delta.argmax())
+            fail(f"{tag}: request {rid} step {j}: |dlogit| {float(delta[j])} "
+                 f"> {tol}")
+        top2 = ref_s.topk(2, dim=-1)
+        margin = top2.values[:, 0] - top2.values[:, 1]
+        miss = torch.as_tensor(toks[1:], device=DEV) != top2.indices[:, 0]
+        if bool((miss & (margin > tol)).any()):
+            j = int((miss & (margin > tol)).nonzero()[0])
+            fail(f"{tag}: request {rid} step {j}: token {toks[j + 1]} != "
+                 f"reference argmax {int(top2.indices[j, 0])} at margin "
+                 f"{float(margin[j])} > {tol}")
+        ties += int(miss.sum())
+        total += len(steps)
+    if ties > total // 2:
+        fail(f"{tag}: near-ties {ties} of {total} steps")
+    return {"worst_dlogit": worst, "logit_tol": tol, "near_ties": ties,
+            "steps_checked": total}
+
+
+class LargestPagedCall:
+    """While active, wraps ``pa.paged_decode_attention`` and keeps a frozen
+    copy of the inputs of the call with the most kv tokens.  Each call it
+    sees syncs the device (the token count is read on the host), so it
+    stays active for a few steps only."""
+
+    def __init__(self):
+        self.tokens, self.args = -1, None
+        self._launch = pa.paged_decode_attention
+
+    def _record(self, q, k, v, bt, lengths, *, scale=None, k_scale=None,
+                v_scale=None):
+        tokens = int(lengths.sum())
+        if tokens > self.tokens:
+            ts = (q, k, v, bt, lengths) + (() if k_scale is None
+                                           else (k_scale, v_scale))
+            self.tokens, self.args = tokens, tuple(t.clone() for t in ts)
+        return self._launch(q, k, v, bt, lengths, scale=scale,
+                            k_scale=k_scale, v_scale=v_scale)
+
+    def __enter__(self):
+        pa.paged_decode_attention = self._record
+        return self
+
+    def __exit__(self, *exc):
+        pa.paged_decode_attention = self._launch
+
+
+def make_engine(cfg, params, prompts, pipeline: bool, *,
+                new_tokens: int = NEW_TOKENS, **kw) -> NanoCPEngine:
+    """The main path's engine: virtual (I=4, TP=2) mesh, the prompts queued.
+    ``kw`` overrides engine settings (kv dtype, the escalation cell's)."""
+    args = dict(num_instances=4, instances_per_node=4,
+                kv_capacity_tokens=4096, page_size=16, tp=2,
+                buckets=CPBuckets(edges=(100, 256), degrees=(1, 2, 3)))
+    args.update(kw)
+    eng = NanoCPEngine(cfg, params, pipeline=pipeline, device=DEV, **args)
     for p in prompts:
-        eng.add_request(p, max_new_tokens=NEW_TOKENS)
+        eng.add_request(p, max_new_tokens=new_tokens)
     return eng
 
 
-def run_engine(cfg, params, prompts, pipeline: bool) -> dict:
-    tag = "pipelined" if pipeline else "non-pipelined"
+def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
+               tag: str | None = None, new_tokens: int = NEW_TOKENS,
+               escalate: bool = False, **kw) -> dict:
+    """One engine run, its launch counts zeroed right before and read right
+    after.  Float32 pools: transcripts equal the greedy forward.  Quantized
+    pools: the tolerance contract, every paged launch of the quantized
+    variant, the kv dtype in the bucket key, a clean frame audit and the
+    live re-shard exercised (relaxations, or escalations when
+    ``escalate``); the largest paged call of the first steps is kept in
+    ``row["captured"]``."""
+    quantized = quant.is_quantized(kv_dtype)
+    tag = tag or ("pipelined" if pipeline else "non-pipelined")
     torch.cuda.reset_peak_memory_stats()
-    eng = make_engine(cfg, params, prompts, pipeline)
+    if quantized:
+        kw.update(kv_dtype=kv_dtype, keep_logits=True,
+                  audit_donation_every_step=True)
+    eng = make_engine(cfg, params, prompts, pipeline, new_tokens=new_tokens,
+                      **kw)
     torch.cuda.synchronize()
     pa.LAUNCHES = 0
+    pa.LAUNCHES_BY_PAGE.clear()
     fa.LAUNCHES = 0
+    cap = LargestPagedCall() if quantized else None
     step_ms, prefill_us, steady, host_us = [], 0.0, [], {}
     t_run = time.perf_counter()
     with torch.no_grad():
         while eng.pending and len(step_ms) < 200:
+            inspect = cap is not None and len(step_ms) < CAPTURE_STEPS
             t0 = time.perf_counter()
-            eng.step()
+            if inspect:
+                with cap:
+                    eng.step()
+            else:
+                eng.step()
             dt = (time.perf_counter() - t0) * 1e3
             step_ms.append(dt)
             if "prefill_us" in eng.timings:
                 prefill_us += eng.timings["prefill_us"]
-            elif "dispatch_us" in eng.timings:
+            elif "dispatch_us" in eng.timings and not inspect:
                 steady.append(dt)
                 for k, v in eng.timings.items():
                     host_us.setdefault(k, []).append(v)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     launches = {"paged_decode": pa.LAUNCHES, "flash_fwd": fa.LAUNCHES}
+    by_page = dict(pa.LAUNCHES_BY_PAGE)
     steps = eng.hot_path_stats["steps"]
     want = {"paged_decode": steps * cfg.num_layers,
             "flash_fwd": len(prompts) * cfg.num_layers}
     if launches != want:
         fail(f"{tag}: launches {launches}, expected {want} "
              f"(steps x layers, prompts x layers)")
+    page_name = str(eng.state["k_pool"].dtype).replace("torch.", "")
+    if by_page != {page_name: want["paged_decode"]}:
+        fail(f"{tag}: paged launches by page type {by_page}, expected all "
+             f"{want['paged_decode']} of {page_name}")
     if eng.aot.stats.donation_copies:
         fail(f"{tag}: pools moved during a step: {eng.aot.stats.as_dict()}")
-    ties = teacher_forced_check(cfg, params, prompts, eng.results, tag)
+    hp = eng.hot_path_stats
+    row = {"phase": "engine", "run": tag, "kv_dtype": kv_dtype,
+           "requests": len(prompts),
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": new_tokens,
+           "steps": steps, "launches": launches,
+           "launches_by_page": by_page}
+    if quantized:
+        row.update(quant_contract(cfg, params, prompts, eng, kv_dtype, tag,
+                                  new_tokens))
+        if eng.last_bucket[-1] != kv_dtype:
+            fail(f"{tag}: bucket key {eng.last_bucket} lacks the kv dtype")
+        eng.cluster.page_table.frame_audit()
+        if escalate:
+            fin = eng.finished[0]
+            if (hp["escalations"] < 1 or hp["reshard_tokens"] <= 0
+                    or len(fin.kv_binding) != 2):
+                fail(f"{tag}: no escalation re-shard: {hp}, binding "
+                     f"{fin.kv_binding}")
+        elif hp["relaxations"] <= 0:
+            fail(f"{tag}: the quantized re-shard never ran: {hp}")
+        row["captured_kv_tokens"] = cap.tokens
+    else:
+        row["ties_tolerated"] = teacher_forced_check(cfg, params, prompts,
+                                                     eng.results, tag)
     decode_tokens = sum(len(r.tokens) - 1 for r in eng.results.values())
     decode_s = sum(step_ms) / 1e3 - prefill_us / 1e6
-    row = {"phase": "engine", "run": tag, "requests": len(prompts),
-           "prompt_lens": list(PROMPT_LENS), "new_tokens": NEW_TOKENS,
-           "steps": steps, "launches": launches,
-           "median_steady_step_ms": statistics.median(steady) if steady else None,
-           "steady_steps": len(steady),
-           # host clock, median over steady steps: table lowering, upload,
-           # step enqueue (dispatch) and the wait for the previous step's
-           # tokens (harvest; in the pipelined run this is where the host
-           # waits for the device)
-           "steady_host_us": {k: statistics.median(v)
-                              for k, v in sorted(host_us.items())},
-           "prefill_ms_per_request": prefill_us / 1e3 / len(prompts),
-           "decode_tokens_per_s": decode_tokens / decode_s,
-           "run_s": run_s, "ties_tolerated": ties,
-           "hot_path_stats": eng.hot_path_stats,
-           "aot": eng.aot.stats.as_dict(),
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    row.update({
+        "median_steady_step_ms": statistics.median(steady) if steady else None,
+        "steady_steps": len(steady),
+        # host clock, median over steady steps: table lowering, upload,
+        # step enqueue (dispatch) and the wait for the previous step's
+        # tokens (harvest; in the pipelined run this is where the host
+        # waits for the device)
+        "steady_host_us": {k: statistics.median(v)
+                           for k, v in sorted(host_us.items())},
+        "prefill_ms_per_request": prefill_us / 1e3 / len(prompts),
+        "decode_tokens_per_s": decode_tokens / decode_s,
+        "run_s": run_s, "hot_path_stats": hp,
+        "aot": eng.aot.stats.as_dict(),
+        "last_bucket": list(eng.last_bucket),
+        "pool_bytes": nbytes(*eng.state.values()),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
     emit(row)
+    if cap is not None:
+        row["captured"] = cap.args
     del eng
     gc.collect()        # the engine and its step cache form a cycle
     torch.cuda.empty_cache()
@@ -358,21 +536,9 @@ def profile_engine(cfg, params, prompts) -> dict:
     share of the traced window (the profiler's own host overhead lengthens
     the window, so the share is a lower bound)."""
     eng = make_engine(cfg, params, prompts, pipeline=True)
-    captured = {"tokens": -1}
-    launch = pa.paged_decode_attention
-
-    def record(q, k, v, bt, lengths, *, scale=None):
-        tokens = int(lengths.sum())
-        if tokens > captured["tokens"]:
-            captured.update(tokens=tokens, args=tuple(
-                t.clone() for t in (q, k, v, bt, lengths)))
-        return launch(q, k, v, bt, lengths, scale=scale)
-
-    pa.paged_decode_attention = record
-    with torch.no_grad():
-        for _ in range(4):                  # admission + first decode steps
+    with torch.no_grad(), LargestPagedCall() as cap:
+        for _ in range(CAPTURE_STEPS):      # admission + first decode steps
             eng.step()
-    pa.paged_decode_attention = launch
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -404,7 +570,7 @@ def profile_engine(cfg, params, prompts) -> dict:
     del eng
     gc.collect()        # the engine and its step cache form a cycle
     torch.cuda.empty_cache()
-    return captured["args"]
+    return cap.args
 
 
 def main() -> None:
@@ -434,20 +600,48 @@ def main() -> None:
     emit(main_row)
     ksum["paged_decode"].append(main_row)
 
-    main_run = runs[0]
+    # quantized pools: the main path's traffic, then the escalation cell
+    qruns = {}
+    for kv_dtype in ("fp8", "int8"):
+        qruns[kv_dtype] = run = run_engine(cfg, params, prompts, True,
+                                           kv_dtype=kv_dtype,
+                                           tag=f"{kv_dtype} pipelined")
+        # the quantized kernel at the largest call the run made, for the
+        # run's float32 queries and for bfloat16 ones
+        q, *rest = run.pop("captured")
+        for qq in (q, q.to(torch.bfloat16)):
+            row = paged_row((qq, *rest), qq.dtype, "main path")
+            emit(row)
+            ksum[row["name"]].append(row)
+    rng = np.random.default_rng(0)
+    run_engine(cfg, params, [rng.integers(0, cfg.vocab_size, (40,))], True,
+               kv_dtype="fp8", tag="fp8 escalate", new_tokens=24,
+               escalate=True, num_instances=2, instances_per_node=2, tp=2,
+               buckets=CPBuckets(edges=(48,), degrees=(1, 2)),
+               shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4),
+                                          s_buckets=(0, 1, 2, 4), window=2),
+               max_slots_per_instance=4)
+
+    src, replaces = ("src/repro_torch/csrc/paged_decode.cu",
+                     "src/repro/kernels/paged_attention.py:36")
     kernels = []
-    for name, src, replaces in (
-            ("paged_decode", "src/repro_torch/csrc/paged_decode.cu",
-             "src/repro/kernels/paged_attention.py:36"),
+    for name, source, repl, launches in (
+            ("paged_decode", src, replaces,
+             runs[0]["launches"]["paged_decode"]),
+            ("paged_decode_fp8", src, replaces,
+             qruns["fp8"]["launches"]["paged_decode"]),
+            ("paged_decode_int8", src, replaces,
+             qruns["int8"]["launches"]["paged_decode"]),
             ("flash_fwd", "src/repro_torch/csrc/flash_fwd.cu",
-             "src/repro/kernels/flash_attention.py:27")):
+             "src/repro/kernels/flash_attention.py:27",
+             runs[0]["launches"]["flash_fwd"])):
         rows = ksum[name]
         # the timing at the main path's shapes: the captured paged call, and
         # the 2000-token prompt's prefill attention
         timed = [r for r in rows if r["dtype"] == "float32" and "ms" in r][-1]
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": main_run["launches"][name],
+            "name": name, "route": "cuda", "source": source, "replaces": repl,
+            "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["dtype"] == "float32"),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],

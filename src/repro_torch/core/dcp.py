@@ -23,8 +23,13 @@ block j, so ``x @ w`` viewed as ``[.., tp, C/tp]`` is every device's
 output); row-parallel weights are stored as ``[tp, R/tp, D]`` chunks and
 their partial products summed over tp, as the reference's psum does.
 
+Quantized pools (``kv_dtype`` fp8/int8) store codes plus per-page float32
+scales ``k_scale``/``v_scale`` ``[nb, n_attn, I, tp, F']``; appends quantize
+under the offset-0 rule (``kernels/quant.py``) and the paged kernel
+dequantizes as it reads.
+
 Not ported yet (each raises ``NotImplementedError``): the dense all-gather
-backend, quantized pools, MLA, SSM and encoder-decoder steps.
+backend, MLA, SSM and encoder-decoder steps.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from ..kernels import ops
+from ..kernels import ops, quant
 from ..models import layers as L
 from ..models.transformer import block_slice, check_supported
 from . import comm
@@ -64,7 +69,7 @@ class DecodeDims:
                                      # device-side EOS mask (see
                                      # ``_mask_eos_slots``)
     kv_dtype: str = "bf16"           # "bf16" = pools in the model dtype;
-                                     # fp8/int8: ROADMAP queue 1 item 8
+                                     # "fp8"/"int8" = quantized pools
 
     @property
     def num_rounds(self) -> int:
@@ -77,10 +82,7 @@ def check_dims(dims: DecodeDims) -> None:
         raise NotImplementedError(
             f"backend {dims.backend!r}: only the routed backend is ported; "
             "the dense all-gather baseline is ROADMAP queue 1 item 4")
-    if dims.kv_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_dtype {dims.kv_dtype!r}: quantized pools are ROADMAP "
-            "queue 1 item 8")
+    quant.check_kv_dtype(dims.kv_dtype)
 
 
 def attn_tp_geometry(cfg: ModelConfig, tp: int):
@@ -203,7 +205,12 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
 def init_serve_state(cfg: ModelConfig, dims: DecodeDims, num_instances: int,
                      dtype=torch.bfloat16, device="cuda") -> dict:
     """Zeroed pools ``[nb, n_attn, I, tp, F', page, kg*hd]``; the last frame
-    of each sub-pool is the scratch frame the allocator never hands out."""
+    of each sub-pool is the scratch frame the allocator never hands out.
+
+    Quantized pools (``dims.kv_dtype`` fp8/int8) hold codes of the storage
+    dtype, plus ``k_scale``/``v_scale`` ``[nb, n_attn, I, tp, F']`` float32
+    scales set to 1 (any positive value works: a frame is always refilled
+    from offset 0 before it is read)."""
     check_supported(cfg)
     check_dims(dims)
     dev = resolve_device(device)
@@ -214,8 +221,15 @@ def init_serve_state(cfg: ModelConfig, dims: DecodeDims, num_instances: int,
     fp = -(-(dims.num_frames - 1) // ps) + 1     # frames/stripe + scratch
     shape = (nb, n_attn, num_instances, dims.tp, fp, dims.page,
              kg * cfg.head_dim_)
-    return {"k_pool": torch.zeros(shape, dtype=dtype, device=dev),
-            "v_pool": torch.zeros(shape, dtype=dtype, device=dev)}
+    if not quant.is_quantized(dims.kv_dtype):
+        return {"k_pool": torch.zeros(shape, dtype=dtype, device=dev),
+                "v_pool": torch.zeros(shape, dtype=dtype, device=dev)}
+    pdt = quant.kv_storage_dtype(dims.kv_dtype, dtype)
+    sc_shape = shape[:5]
+    return {"k_pool": torch.zeros(shape, dtype=pdt, device=dev),
+            "v_pool": torch.zeros(shape, dtype=pdt, device=dev),
+            "k_scale": torch.ones(sc_shape, dtype=torch.float32, device=dev),
+            "v_scale": torch.ones(sc_shape, dtype=torch.float32, device=dev)}
 
 
 # =========================================================================== #
@@ -291,13 +305,15 @@ def _split_pages(bt, length, ps: int, p_j: int, mbt: int, page: int):
 
 
 def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
-                   dk: int, dv: int, geom):
+                   dk: int, dv: int, geom, k_scale=None, v_scale=None):
     """Phases 1-4 for one attention layer, every virtual device at once.
 
     q: [I, tp, M, hl, dk] local-slot queries.  k_pool/v_pool:
     [I, tp, F', page, kg*(dk|dv)] sub-pools (device (i, j) holds kv-head
     group j % khs, page stripe j // khs), updated IN PLACE by this step's
     appends.  new_k/new_v: [I, tp, M, kg*(dk|dv)] this step's token KV.
+    k_scale/v_scale: [I, tp, F'] per-page scales iff the pools are
+    quantized, updated in place with the appends.
     Returns merged [I, tp, M, hl, dv].
     """
     I, tp = dims.data_size, dims.tp
@@ -325,8 +341,17 @@ def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
                      (torch.arange(M, device=dev) % page)[None, None, :])
     ii = torch.arange(I, device=dev)[:, None, None]
     jj = jt[None, :, None]
-    k_pool[ii, jj, af, ao] = new_k.to(k_pool.dtype)
-    v_pool[ii, jj, af, ao] = new_v.to(v_pool.dtype)
+    if k_scale is None:
+        k_pool[ii, jj, af, ao] = new_k.to(k_pool.dtype)
+        v_pool[ii, jj, af, ao] = new_v.to(v_pool.dtype)
+    else:
+        # offset-0 rule: an append at offset 0 starts the page with this
+        # token's amax/qmax; a later one clips into the page's scale.  Rows
+        # that repeat only hit the scratch frame, whose contents are never read
+        for pool, sc, new in ((k_pool, k_scale, new_k), (v_pool, v_scale, new_v)):
+            quant.write_offset0(pool, (ii, jj, af, ao), sc, (ii, jj, af), new,
+                                quant.amax_scale(new, dims.kv_dtype), ao == 0,
+                                dims.kv_dtype)
 
     # -- Phase 1: Q-routing over the zig-zag ring --
     recv_q = (comm.route_rounds(lambda d, idx: comm.gather_rows(q, idx),
@@ -355,11 +380,16 @@ def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
     dev_off = ((torch.arange(I, device=dev)[:, None] * tp + jt[None, :]) * Fp)
     bt_flat = (bt_dev + dev_off[..., None, None].to(bt_dev.dtype)).reshape(
         I * tp * N, -1).to(torch.int32)
+    # q stays in the model dtype; unquantized pools share it
+    q_flat = q_work.reshape(I * tp * N, Gq, dk)
+    if k_scale is None:
+        q_flat = q_flat.to(k_pool.dtype)
     out, lse = ops.paged_decode_attention(
-        q_work.reshape(I * tp * N, Gq, dk).to(k_pool.dtype),
-        k_pool.reshape(I * tp * Fp, page, kg, dk),
+        q_flat, k_pool.reshape(I * tp * Fp, page, kg, dk),
         v_pool.reshape(I * tp * Fp, page, kg, dv),
-        bt_flat, len_dev.reshape(-1).to(torch.int32), scale=dk ** -0.5)
+        bt_flat, len_dev.reshape(-1).to(torch.int32), scale=dk ** -0.5,
+        k_scale=None if k_scale is None else k_scale.reshape(I * tp * Fp),
+        v_scale=None if v_scale is None else v_scale.reshape(I * tp * Fp))
     out = out.reshape(I, tp, N, Gq, dv)
     lse = lse.reshape(I, tp, N, Gq)
     if ps > 1:
@@ -395,7 +425,7 @@ def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
 
 
 def _attn_layer(cfg: ModelConfig, dims: DecodeDims, lp: dict, x, k_pool,
-                v_pool, tbl: dict, geom):
+                v_pool, tbl: dict, geom, k_scale=None, v_scale=None):
     """One GQA attention layer for every device.  x: [I*M, D] (identical on
     each tp device); returns the layer output [I*M, D] after the psum."""
     I, tp, M = dims.data_size, dims.tp, dims.M
@@ -411,7 +441,8 @@ def _attn_layer(cfg: ModelConfig, dims: DecodeDims, lp: dict, x, k_pool,
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta).reshape(I, tp, M, kg * hd)
     merged = _dcp_attention(dims, q, k_pool, v_pool, k, v, tbl, dk=hd, dv=hd,
-                            geom=geom)                          # [I,tp,M,hl,hd]
+                            geom=geom, k_scale=k_scale,
+                            v_scale=v_scale)                    # [I,tp,M,hl,hd]
     o = merged.reshape(I, tp, M, hl * hd).transpose(0, 1).reshape(tp, I * M,
                                                                   hl * hd)
     return torch.bmm(o, mx["wo"]).sum(dim=0)                    # psum over tp
@@ -422,8 +453,9 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
     logits [I, M, Vp])`` over the whole virtual mesh.
 
     ``params`` is the ``to_decode_params`` layout, ``state`` the
-    ``init_serve_state`` pools (updated IN PLACE — the counterpart of the
-    reference's donated state), ``tables`` the uploaded routing tables.
+    ``init_serve_state`` pools and, for quantized pools, their scales
+    (updated IN PLACE — the counterpart of the reference's donated state),
+    ``tables`` the uploaded routing tables.
     """
     check_supported(cfg)
     check_dims(dims)
@@ -437,12 +469,15 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
         emb = params["embed"]["tok"]
         x = _embed_lookup(emb, tokens, tp).to(emb.dtype).reshape(I * M, -1)
         kp_all, vp_all = state["k_pool"], state["v_pool"]
+        ks_all, vs_all = state.get("k_scale"), state.get("v_scale")
         for bi in range(cfg.num_blocks):
             bp = block_slice(params["blocks"], bi)
             for li, kind in enumerate(pattern):
                 lp = bp["layers"][li]
+                scales = ({} if ks_all is None else
+                          {"k_scale": ks_all[bi, li], "v_scale": vs_all[bi, li]})
                 x = x + _attn_layer(cfg, dims, lp, x, kp_all[bi, li],
-                                    vp_all[bi, li], tbl, geom)
+                                    vp_all[bi, li], tbl, geom, **scales)
                 h = L.apply_norm(cfg, lp["ln2"], x)
                 x = x + dense_decode_ffn(cfg, lp["ffn"], h, tp)
         x = L.apply_norm(cfg, params["final_norm"], x)

@@ -1,5 +1,5 @@
 """KV-cache migration: prefill output -> DCP-placed pool frames (§3 (2)-(3)),
-port of ``repro/core/migrate.py`` (non-quantized GQA pools).
+port of ``repro/core/migrate.py`` (GQA pools, unquantized or fp8/int8).
 
 Token->shard assignment is contiguous ranges in sorted binding order
 (decode attention + LSE merge are order-agnostic over the prefix, so any
@@ -20,8 +20,13 @@ behind escalation and relaxation); the reference's main path relaxes (it
 consolidates fragmented tail pages onto the MoE binding) within its first
 decode steps, so the engine needs it.
 
-Not ported yet: quantized pools (ROADMAP queue 1 item 8), MLA latents
-(item 9), SSM states (item 11) and whisper cross/self KV (item 12).
+Quantized pools move with their per-page scales under the offset-0 rule
+(``kernels/quant.py``): the scatter quantizes on the write, the re-shard
+dequantizes with the source scales and requantizes against the
+destination's.
+
+Not ported yet: MLA latents (ROADMAP queue 1 item 9), SSM states (item 11)
+and whisper cross/self KV (item 12).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..kernels import quant
 from .dcp import DecodeDims, attn_tp_geometry, check_dims, kv_group_size
 from .state import ClusterState
 
@@ -119,18 +125,50 @@ class PrefillScatter:
         _, self.khs, self.ps = attn_tp_geometry(cfg, dims.tp)
         self.kg = kv_group_size(cfg, dims.tp)
 
+    def quantized_write(self, pool: torch.Tensor, scale: torch.Tensor,
+                        x: torch.Tensor, page_ix: tuple,
+                        off: torch.Tensor) -> None:
+        """Write float values ``x`` [nb, na, T, khs, d] into a quantized pool
+        and its scales ``[nb, na, I, tp, F']``, in place, under the offset-0
+        rule: a page that receives an offset-0 token in THIS call gets a
+        fresh scale, the max over the call's tokens for the page of their
+        amax/qmax; every other page keeps its scale, and the new tokens clip
+        into it.  page_ix = (instance, chunk, sub-frame) indices broadcasting
+        to [T, khs]; off [T] the tokens' page offsets."""
+        kv_dtype = self.dims.kv_dtype
+        nb, na, _, tp, Fp = scale.shape
+        ii, c, ff = page_ix
+        lin = (ii * tp + c) * Fp + ff                              # [T, khs]
+        tok = quant.amax_scale(x, kv_dtype)                         # [nb,na,T,khs]
+        fresh = torch.zeros(nb, na, scale[0, 0].numel(), device=scale.device)
+        fresh.scatter_reduce_(2, lin.reshape(1, 1, -1).expand(nb, na, -1),
+                              tok.reshape(nb, na, -1), reduce="amax")
+        at0 = (off == 0)[:, None].expand(lin.shape).to(torch.int32)
+        has0 = torch.zeros(fresh.shape[2], dtype=torch.int32,
+                           device=scale.device).scatter_reduce_(
+            0, lin.reshape(-1), at0.reshape(-1), reduce="amax") > 0
+        a, b = slice(None), slice(None)
+        quant.write_offset0(pool, (a, b, ii, c, ff, off[:, None]), scale,
+                            (a, b, ii, c, ff), x, fresh[:, :, lin], has0[lin],
+                            kv_dtype)
+
     def scatter_kv(self, state: dict, k: torch.Tensor, v: torch.Tensor,
                    coords: np.ndarray) -> dict:
         """k, v: [nb, na, T, khs, kg*d] device tensors (the Hkv head axis
         reshaped to khs groups of kg heads); coords from ``prefill_coords``
         (concatenated over the admitted batch).  Writes in place; returns
-        ``state``."""
+        ``state``.  Quantized pools quantize on the write, with their
+        scales (``quantized_write``)."""
         kp, vp = state["k_pool"], state["v_pool"]
         cs = torch.as_tensor(np.asarray(coords, np.int64), device=kp.device)
         inst, stripe, subf, off = cs
         c = stripe[:, None] * self.khs + torch.arange(self.khs,
                                                       device=kp.device)
         ii, ff, oo = inst[:, None], subf[:, None], off[:, None]
+        if "k_scale" in state:
+            self.quantized_write(kp, state["k_scale"], k, (ii, c, ff), off)
+            self.quantized_write(vp, state["v_scale"], v, (ii, c, ff), off)
+            return state
         kp[:, :, ii, c, ff, oo] = k.to(kp.dtype)
         vp[:, :, ii, c, ff, oo] = v.to(vp.dtype)
         return state
@@ -143,6 +181,12 @@ class KVReshard:
     matching order (``GlobalPageTable.move_pages``).  Every moved token's KV
     is gathered from the PRE-move pools before any write, so a frame freed
     by one move and reused by another in the same batch stays correct.
+
+    Quantized pools: the moved codes are dequantized with their SOURCE page
+    scales, then requantized against the destination pages
+    (``PrefillScatter.quantized_write``: pages receiving an offset-0 token
+    get a fresh scale from the moved values, partly filled ones keep
+    theirs).  No value is ever read with another page's scale.
     """
 
     def __init__(self, scatter: PrefillScatter):
@@ -162,8 +206,16 @@ class KVReshard:
         c_d = (d[1] % ps)[:, None] * khs + hh
         src_ix = (s[0][:, None], c_s, (s[1] // ps)[:, None], s[2][:, None])
         dst_ix = (d[0][:, None], c_d, (d[1] // ps)[:, None], d[2][:, None])
-        vals = {key: state[key][(slice(None), slice(None)) + src_ix]
-                for key in ("k_pool", "v_pool")}
+        lead = (slice(None), slice(None))
+        vals = {key: state[key][lead + src_ix] for key in ("k_pool", "v_pool")}
+        if "k_scale" in state:
+            for key, skey in (("k_pool", "k_scale"), ("v_pool", "v_scale")):
+                vals[key] = quant.dequantize(
+                    vals[key], state[skey][lead + src_ix[:3]][..., None])
+            for key, skey in (("k_pool", "k_scale"), ("v_pool", "v_scale")):
+                self.sc.quantized_write(state[key], state[skey], vals[key],
+                                        dst_ix[:3], d[2])
+            return state
         for key, v in vals.items():
-            state[key][(slice(None), slice(None)) + dst_ix] = v
+            state[key][lead + dst_ix] = v
         return state

@@ -11,8 +11,17 @@
 //   lengths      [N]      int32      valid kv tokens per row; 0 -> inactive
 //   out          [N, Hq, Dv]         q's dtype
 //   lse          [N, Hq]  float32    -1e30 for an inactive row
+//   k_scale, v_scale [P]  float32    per-page scales, quantized pools only
 //
 // The G = Hq / Hkv query heads of kv head h are q[n, h*G : (h+1)*G].
+//
+// Types: q and out are Tq (float or bfloat16).  Pages are Tkv: Tq itself,
+// or a quantized pool of fp8 e4m3 or int8 codes with one float32 scale per
+// page (src/repro_torch/kernels/quant.py).  For a quantized pool the fused
+// dequant of the Pallas kernel's quantized branch happens at staging: each
+// code is upcast to float32 and multiplied by its page's scale on its way
+// into shared memory (upcast, then multiply, in the Pallas order).  No
+// dequantized copy of the pool ever exists in device memory.
 //
 // Design.  One block per (work row, kv head).  The Pallas kernel's
 // sequential page axis becomes a loop split over the block's warps (up to
@@ -25,15 +34,16 @@
 // read from device memory once per (row, kv head).  The load and
 // accumulate loops use no runtime division.
 //
-// What bounds it: the K/V bytes.  One query row per kv head does about 2*G
-// flops per K/V element, far below the ~295 flop/byte at which the H100's
-// tensor cores would become the limit, so the kernel uses CUDA cores.  But
-// one block serves a (row, kv head), so a call with few long rows keeps
-// few SMs busy, each walking its pages with CUDA-core dot products from
-// shared memory.  Splitting rows across blocks (split-KV) and cp.async/TMA
+// What bounds it: the K/V bytes (1 per value in a quantized pool).  One
+// query row per kv head does about 2*G flops per K/V element, far below
+// the ~295 flop/byte at which the H100's tensor cores would become the
+// limit, so the kernel uses CUDA cores.  But one block serves a (row, kv
+// head), so a call with few long rows keeps few SMs busy, each walking its
+// pages with CUDA-core dot products from shared memory.  Splitting rows across blocks (split-KV) and cp.async/TMA
 // staging are the steps that would approach the bandwidth bound.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 namespace {
@@ -43,6 +53,8 @@ constexpr int kMaxWarps = 16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
@@ -62,16 +74,20 @@ __host__ __device__ inline size_t warp_floats(int G, int Dk, int Dv, int page) {
 
 // Shared memory: q_s [G][Dk] (scaled queries, shared by all warps), then
 // one warp_floats() region per warp.
-template <typename T>
-__global__ void paged_decode_kernel(const T* __restrict__ q,
-                                    const T* __restrict__ k_pages,
-                                    const T* __restrict__ v_pages,
+template <typename Tq, typename Tkv>
+__global__ void paged_decode_kernel(const Tq* __restrict__ q,
+                                    const Tkv* __restrict__ k_pages,
+                                    const Tkv* __restrict__ v_pages,
+                                    const float* __restrict__ k_scale,
+                                    const float* __restrict__ v_scale,
                                     const int32_t* __restrict__ block_tables,
                                     const int32_t* __restrict__ lengths,
-                                    T* __restrict__ out,
+                                    Tq* __restrict__ out,
                                     float* __restrict__ lse,
                                     int Hq, int Hkv, int Dk, int Dv, int page,
                                     int MB, float scale) {
+  // a 1-byte page type is a quantized pool (fp8 e4m3 or int8 codes)
+  constexpr bool kQuant = sizeof(Tkv) == 1;
   extern __shared__ float smem[];
   const int n = blockIdx.x;
   const int h = blockIdx.y;
@@ -88,7 +104,7 @@ __global__ void paged_decode_kernel(const T* __restrict__ q,
   const size_t o_base = ((size_t)n * Hq + (size_t)h * G) * Dv;
 
   if (length <= 0) {
-    for (int i = tid; i < G * Dv; i += blockDim.x) out[o_base + i] = from_f<T>(0.f);
+    for (int i = tid; i < G * Dv; i += blockDim.x) out[o_base + i] = from_f<Tq>(0.f);
     for (int g = tid; g < G; g += blockDim.x) lse[(size_t)n * Hq + h * G + g] = kNegInf;
     return;
   }
@@ -103,9 +119,9 @@ __global__ void paged_decode_kernel(const T* __restrict__ q,
   float* l_s = m_s + G;
   float* c_s = l_s + G;
 
-  // q * scale, rounded to T as the plain version does before the product
+  // q * scale, rounded to Tq as the plain version does before the product
   for (int i = tid; i < G * Dk; i += blockDim.x)
-    q_s[i] = to_f(from_f<T>(to_f(q[q_base + i]) * scale));
+    q_s[i] = to_f(from_f<Tq>(to_f(q[q_base + i]) * scale));
   for (int i = lane; i < G * Dv; i += 32) acc_s[i] = 0.f;
   for (int g = lane; g < G; g += 32) {
     m_s[g] = kNegInf;
@@ -120,18 +136,28 @@ __global__ void paged_decode_kernel(const T* __restrict__ q,
     const int valid = min(page, length - b * page);
     // stage the page's valid K and V rows of kv head h: lanes walk the
     // head dim (coalesced), and the token loop is unrolled so that several
-    // independent loads are in flight per lane
-    const T* kp = k_pages + (pid * page * Hkv + h) * Dk;   // token t at t*Hkv*Dk
-    const T* vp = v_pages + (pid * page * Hkv + h) * Dv;
+    // independent loads are in flight per lane.  A quantized page is
+    // dequantized here with its two scales, read once per page.
+    const Tkv* kp = k_pages + (pid * page * Hkv + h) * Dk;   // token t at t*Hkv*Dk
+    const Tkv* vp = v_pages + (pid * page * Hkv + h) * Dv;
+    float ks = 1.f, vs = 1.f;
+    if constexpr (kQuant) {
+      ks = k_scale[pid];
+      vs = v_scale[pid];
+    }
     for (int d = lane; d < Dk; d += 32) {
 #pragma unroll 8
-      for (int t = 0; t < valid; ++t)
-        k_s[t * kstride + d] = to_f(kp[(size_t)t * Hkv * Dk + d]);
+      for (int t = 0; t < valid; ++t) {
+        const float x = to_f(kp[(size_t)t * Hkv * Dk + d]);
+        k_s[t * kstride + d] = kQuant ? x * ks : x;
+      }
     }
     for (int d = lane; d < Dv; d += 32) {
 #pragma unroll 8
-      for (int t = 0; t < valid; ++t)
-        v_s[t * Dv + d] = to_f(vp[(size_t)t * Hkv * Dv + d]);
+      for (int t = 0; t < valid; ++t) {
+        const float x = to_f(vp[(size_t)t * Hkv * Dv + d]);
+        v_s[t * Dv + d] = kQuant ? x * vs : x;
+      }
     }
     __syncwarp();
     // scores for every (head, valid token) of the page
@@ -196,18 +222,21 @@ __global__ void paged_decode_kernel(const T* __restrict__ q,
       if (i < G * Dv) a += acc_w[i] * e;
     }
     if (i < G * Dv)
-      out[o_base + i] = from_f<T>(a / fmaxf(l, 1e-30f));
+      out[o_base + i] = from_f<Tq>(a / fmaxf(l, 1e-30f));
     else
       lse[(size_t)n * Hq + h * G + g] = mx + logf(fmaxf(l, 1e-30f));
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* bt,
-           const void* len, void* out, void* lse, int N, int Hq, int Hkv,
-           int Dk, int Dv, int page, int MB, float scale, cudaStream_t stream) {
+template <typename Tq, typename Tkv>
+int launch(const void* q, const void* k, const void* v, const float* ks,
+           const float* vs, const void* bt, const void* len, void* out,
+           void* lse, int N, int Hq, int Hkv, int Dk, int Dv, int page, int MB,
+           float scale, cudaStream_t stream) {
+  if (sizeof(Tkv) == 1 && (ks == nullptr || vs == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
-  // the card's opt-in shared memory per block, read once
+  // the card's opt-in shared memory per block, read once per instantiation
   static int optin = 0;
   cudaError_t e;
   if (optin == 0) {
@@ -224,36 +253,65 @@ int launch(const void* q, const void* k, const void* v, const void* bt,
   while (nwarps > 1 && q_bytes + nwarps * w_bytes > (size_t)optin) --nwarps;
   const size_t smem = q_bytes + nwarps * w_bytes;
   if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  static size_t smem_set = 48 * 1024;      // this instantiation's limit
+  // this instantiation's shared-memory opt-in (the static is per <Tq, Tkv>)
+  static size_t smem_set = 48 * 1024;
   if (smem > smem_set) {
-    e = cudaFuncSetAttribute(paged_decode_kernel<T>,
+    e = cudaFuncSetAttribute(paged_decode_kernel<Tq, Tkv>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
   dim3 grid(N, Hkv);
-  paged_decode_kernel<T><<<grid, 32 * nwarps, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int32_t*>(bt), static_cast<const int32_t*>(len),
-      static_cast<T*>(out), static_cast<float*>(lse), Hq, Hkv, Dk, Dv, page, MB,
-      scale);
+  paged_decode_kernel<Tq, Tkv><<<grid, 32 * nwarps, smem, stream>>>(
+      static_cast<const Tq*>(q), static_cast<const Tkv*>(k),
+      static_cast<const Tkv*>(v), ks, vs, static_cast<const int32_t*>(bt),
+      static_cast<const int32_t*>(len), static_cast<Tq*>(out),
+      static_cast<float*>(lse), Hq, Hkv, Dk, Dv, page, MB, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename Tq>
+int launch_q(int kv_type, const void* q, const void* k, const void* v,
+             const float* ks, const float* vs, const void* bt, const void* len,
+             void* out, void* lse, int N, int Hq, int Hkv, int Dk, int Dv,
+             int page, int MB, float scale, cudaStream_t s) {
+  switch (kv_type) {
+    case 0:
+      return launch<Tq, Tq>(q, k, v, ks, vs, bt, len, out, lse, N, Hq, Hkv, Dk,
+                            Dv, page, MB, scale, s);
+    case 1:
+      return launch<Tq, __nv_fp8_e4m3>(q, k, v, ks, vs, bt, len, out, lse, N,
+                                       Hq, Hkv, Dk, Dv, page, MB, scale, s);
+    case 2:
+      return launch<Tq, int8_t>(q, k, v, ks, vs, bt, len, out, lse, N, Hq, Hkv,
+                                Dk, Dv, page, MB, scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success).  The caller checks shapes, types and contiguity.
+// q_type: 0 = float32, 1 = bfloat16 (q and out).  kv_type: 0 = pages in
+// q's type (k_scale/v_scale unused), 1 = fp8 e4m3 codes, 2 = int8 codes
+// (k_scale/v_scale [P] float32 required).  Returns cudaGetLastError() after
+// the launch (0 on success).  The caller checks shapes, types, contiguity.
 extern "C" int paged_decode(const void* q, const void* k_pages,
-                            const void* v_pages, const void* block_tables,
+                            const void* v_pages, const void* k_scale,
+                            const void* v_scale, const void* block_tables,
                             const void* lengths, void* out, void* lse, int N,
                             int Hq, int Hkv, int Dk, int Dv, int page, int MB,
-                            float scale, int dtype, void* stream) {
+                            float scale, int q_type, int kv_type, void* stream) {
   if (N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, block_tables, lengths, out, lse,
-                         N, Hq, Hkv, Dk, Dv, page, MB, scale, s);
-  return launch<__nv_bfloat16>(q, k_pages, v_pages, block_tables, lengths, out,
-                               lse, N, Hq, Hkv, Dk, Dv, page, MB, scale, s);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  if (q_type == 0)
+    return launch_q<float>(kv_type, q, k_pages, v_pages, ks, vs, block_tables,
+                           lengths, out, lse, N, Hq, Hkv, Dk, Dv, page, MB,
+                           scale, s);
+  if (q_type == 1)
+    return launch_q<__nv_bfloat16>(kv_type, q, k_pages, v_pages, ks, vs,
+                                   block_tables, lengths, out, lse, N, Hq, Hkv,
+                                   Dk, Dv, page, MB, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -48,17 +48,21 @@ def attention(q, k, v, **kw):
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
-                           scale: float | None = None):
+                           scale: float | None = None, k_scale=None,
+                           v_scale=None):
     """Paged decode attention with LSE.  See ``ref.paged_decode_attention``.
 
     q [N, Hq, Dk]; pages [P, page, Hkv, D]; block_tables [N, MB] int32;
-    lengths [N] int32.
+    lengths [N] int32; ``k_scale``/``v_scale`` [P] float32 for quantized
+    (fp8/int8) pages.
     """
     if _plain(q):
         return ref.paged_decode_attention(q, k_pages, v_pages, block_tables,
-                                          lengths, scale=scale)
+                                          lengths, scale=scale,
+                                          k_scale=k_scale, v_scale=v_scale)
     return pa.paged_decode_attention(q, k_pages, v_pages, block_tables,
-                                     lengths, scale=scale)
+                                     lengths, scale=scale, k_scale=k_scale,
+                                     v_scale=v_scale)
 
 
 def merge_lse(partial_out, partial_lse, mask=None):

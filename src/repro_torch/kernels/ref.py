@@ -111,7 +111,8 @@ def flash_attention_blockwise(q, k, v, *, causal: bool = True,
 # paged decode attention
 # --------------------------------------------------------------------------- #
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
-                           scale: float | None = None):
+                           scale: float | None = None, k_scale=None,
+                           v_scale=None):
     """Decode attention over a paged KV pool, with LSE output.
 
     q:            [N, Hq, Dk]      one query token per work row
@@ -119,11 +120,17 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     v_pages:      [P, page, Hkv, Dv]
     block_tables: [N, MB] int32    page ids per row (entries past length ignored)
     lengths:      [N]     int32    valid kv tokens per row; 0 => inactive row
+    k_scale, v_scale: [P] float32  per-page scales of quantized (fp8/int8)
+                  pools (``quant.py``); pass neither or both
     Returns out [N, Hq, Dv] (q.dtype), lse [N, Hq] (f32; -1e30 for length 0).
 
     The q heads of a kv head are contiguous (kv-head-major), G = Hq/Hkv.
-    Quantized (fp8/int8) pools are not ported yet (ROADMAP queue 1 item 8).
+    Quantized pools are dequantized in the gathered window only: each page
+    is upcast to float32, then multiplied by its scale.
     """
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_decode_attention: pass k_scale and v_scale "
+                         "together, or neither")
     orig_dtype = q.dtype
     N, Hq, Dk = q.shape
     P, page, Hkv, _ = k_pages.shape
@@ -134,6 +141,11 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     bt = block_tables.long()
     k = k_pages[bt].reshape(N, MB * page, Hkv, Dk)
     v = v_pages[bt].reshape(N, MB * page, Hkv, Dv)
+    if k_scale is not None:
+        ks = k_scale.float()[bt].repeat_interleave(page, dim=1)    # [N, MB*page]
+        vs = v_scale.float()[bt].repeat_interleave(page, dim=1)
+        k = k.float() * ks[..., None, None]
+        v = v.float() * vs[..., None, None]
     qg = (q.float() * scale).reshape(N, Hkv, G, Dk).to(q.dtype)
     s = torch.einsum("nhgd,nkhd->nhgk", qg.float(), k.float())     # [N,Hkv,G,L]
     valid = (torch.arange(MB * page, device=q.device)[None, :]

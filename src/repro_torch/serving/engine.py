@@ -26,11 +26,18 @@ Escalations and relaxations the scheduler plans are applied by the live
 KV re-shard (``migrate.KVReshard``): the reference's main path relaxes
 within its first decode steps.
 
+Quantized pools (``kv_dtype="fp8"`` or ``"int8"``) store codes with
+per-page scales (``kernels/quant.py``); the paged kernel dequantizes as it
+reads, and the step cache keys carry the kv dtype.  ``keep_logits=True``
+keeps every step's logits and records them per request at harvest
+(``step_logits``), for the tolerance check of quantized serving; it is off
+on the hot path.
+
 Not ported yet, each raising ``NotImplementedError`` where the reference
 would act: the dense backend (ROADMAP queue 1 item 4); data-plane copies,
-spill relief, OOM finishes, failure and drain (item 7); quantized
-pools (item 8); MLA, MoE, SSM and encoder-decoder models (items 9-12); the
-prefix cache, admission control and prefill cells (item 13).
+spill relief, OOM finishes, failure and drain (item 7); MLA, MoE, SSM and
+encoder-decoder models (items 9-12); the prefix cache, admission control
+and prefill cells (item 13).
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from ..core.comm import node_local_rounds
 from ..core.page_table import KVSpillError
 from ..core.scheduler import BaseScheduler, DualBalancedScheduler
 from ..core.state import ClusterState, Request
+from ..kernels import quant
 from ..models import transformer
 
 
@@ -66,6 +74,8 @@ class _Inflight:
     event: object                # CUDA event recorded after the copy, or None
     # (rid, request, instance, slot, is_last) snapshot at dispatch time
     slots: list
+    # [I, M, V] device logits when the engine keeps them, else None
+    logits: object = None
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -87,15 +97,15 @@ class NanoCPEngine:
                  audit_donation_every_step: bool = False,
                  admission=None, prefix_cache: bool = False,
                  prefill_cells: int = 0, kv_dtype: str = "bf16",
-                 device="cuda"):
+                 keep_logits: bool = False, device="cuda"):
         """``params``: prefill params (``models.transformer`` layout) on
         ``device``.  The virtual mesh is ``num_instances`` x ``tp``.  Pools
-        are float32, as the reference engine allocates them."""
+        are float32, as the reference engine allocates them, or fp8/int8
+        codes with per-page scales for ``kv_dtype`` "fp8"/"int8"."""
         transformer.check_supported(cfg)
         if backend != "routed":
             raise _not_ported(f"backend {backend!r}", 4)
-        if kv_dtype != "bf16":
-            raise _not_ported(f"kv_dtype {kv_dtype!r}", 8)
+        quant.check_kv_dtype(kv_dtype)
         if admission is not None:
             raise _not_ported("SLO admission control", 13)
         if prefix_cache:
@@ -105,6 +115,8 @@ class NanoCPEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tp = tp
+        self.keep_logits = keep_logits
+        self.step_logits: dict = {}
         self.eos = eos_token
         self.pipeline = pipeline
         _, _, ps = dcp.attn_tp_geometry(cfg, tp)
@@ -133,10 +145,15 @@ class NanoCPEngine:
         self.state = dcp.init_serve_state(cfg, self._dims0, num_instances,
                                           dtype=torch.float32,
                                           device=self.device)
+        # quantized engines tag every bucket key with the kv dtype, as the
+        # reference does (their serve states differ from a bf16 engine's)
         self.aot = AOTGraphEngine(self._build_step,
                                   audit_every_step=audit_donation_every_step,
                                   r_ladder=self._r_ladder(ring,
-                                                          instances_per_node))
+                                                          instances_per_node),
+                                  key_tag=(kv_dtype if
+                                           quant.is_quantized(kv_dtype)
+                                           else None))
         self._scatter = migrate.PrefillScatter(cfg, self._dims0, num_instances)
         self._reshard = migrate.KVReshard(self._scatter)
         self._arena = routing.TableArena()
@@ -328,6 +345,7 @@ class NanoCPEngine:
         if infl.event is not None:
             infl.event.synchronize()
         toks = infl.host.numpy()
+        logits = None if infl.logits is None else infl.logits.cpu().numpy()
         self.timings["harvest_us"] = (time.perf_counter() - t0) * 1e6
         self.hot_path_stats["async_token_fetches"] += 1
         done = []
@@ -335,6 +353,8 @@ class NanoCPEngine:
             t = int(toks[i, b])
             self.results[rid].tokens.append(t)
             self.next_tok[rid] = t
+            if logits is not None:
+                self.step_logits.setdefault(rid, []).append(logits[i, b])
             req.token_times.append(now)
             if last:
                 req.finish_time = now
@@ -434,7 +454,8 @@ class NanoCPEngine:
         t0 = time.perf_counter()
         check = self.aot.should_audit_donation()
         in_ptrs = self.aot.buffer_ptrs(self.state) if check else None
-        self.state, toks, _ = fn(self.decode_params, self.state, tbl_dev)
+        self.state, toks, step_logits = fn(self.decode_params, self.state,
+                                           tbl_dev)
         host, event = self._start_token_copy(toks)
         self.timings["dispatch_us"] = (time.perf_counter() - t0) * 1e6
         if check:
@@ -453,7 +474,8 @@ class NanoCPEngine:
                 length_done.append(req)
         for req in length_done:
             self.cluster.finish(req, now)
-        self._inflight = _Inflight(host, event, snapshot)
+        self._inflight = _Inflight(host, event, snapshot,
+                                   step_logits if self.keep_logits else None)
         self.iterations += 1
         self.last_bucket = key
         self.last_rounds_used = tbl.R

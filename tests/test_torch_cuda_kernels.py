@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels held against their plain torch
 versions on the card, on wider grids than ``chip_smoke.py`` covers: head
 dims that are not powers of two up to 256, Dk != Dv, several page sizes
-and G, ragged Sq/Skv, ``kv_len`` and ``q_offset``, float32 and bfloat16.
+and G, ragged Sq/Skv, ``kv_len`` and ``q_offset``, float32 and bfloat16
+queries, and fp8 / int8 quantized pages with per-page scales.
 
 These tests need an NVIDIA GPU and ``nvcc`` (marker ``cuda``); without a
 card they skip.  Run them on the card with
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops, paged_attention as pa, ref
+from repro_torch.kernels import ops, paged_attention as pa, quant, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -62,6 +63,80 @@ def test_paged_decode_kernel_vs_plain(N, Hq, Hkv, Dk, Dv, page, MB, dtype):
     assert pa.LAUNCHES == n0 + 1
     _close(o, o2, dtype)
     torch.testing.assert_close(l, l2, atol=1e-4, rtol=1e-4)
+
+
+def _quantized_pages(Pn, page, H, d, kv_dtype, g):
+    """Codes and per-page scales of random pages, made on the card."""
+    x = torch.randn(Pn, page, H, d, device="cuda", generator=g)
+    sc = quant.amax_scale(x.reshape(Pn, -1), kv_dtype)
+    return quant.quantize(x, sc[:, None, None, None], kv_dtype), sc
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp8", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,Hq,Hkv,Dk,Dv,page,MB", [
+    (6, 16, 2, 64, 64, 16, 5),       # main path head geometry (G 8)
+    (4, 4, 4, 32, 32, 16, 2),        # tests/test_quant.py grids: gqa,
+    (4, 4, 2, 32, 32, 16, 2),        # grouped,
+    (4, 4, 1, 64, 48, 16, 2),        # mla (Dk != Dv)
+    (3, 4, 1, 256, 128, 8, 3),       # widest head dim
+    (2, 32, 1, 256, 256, 64, 2),     # G 32, page 64
+])
+def test_quantized_paged_decode_kernel_vs_plain(N, Hq, Hkv, Dk, Dv, page, MB,
+                                                dtype, kv_dtype):
+    """The fused dequant against the plain gather-then-dequant on the same
+    codes and scales; only the quantized variant launches."""
+    g = torch.Generator(device="cuda").manual_seed(N * 100 + Dk + Dv)
+    Pn = 64
+    q = torch.randn(N, Hq, Dk, device="cuda", generator=g).to(dtype)
+    k, ks = _quantized_pages(Pn, page, Hkv, Dk, kv_dtype, g)
+    v, vs = _quantized_pages(Pn, page, Hkv, Dv, kv_dtype, g)
+    bt = torch.randint(0, Pn, (N, MB), device="cuda", generator=g,
+                       dtype=torch.int32)
+    ln = torch.randint(0, MB * page + 1, (N,), device="cuda", generator=g,
+                       dtype=torch.int32)
+    ln[0] = 0
+    ln[-1] = MB * page
+    name = str(k.dtype).replace("torch.", "")
+    n0, n_var = pa.LAUNCHES, pa.LAUNCHES_BY_PAGE.get(name, 0)
+    o, l = pa.paged_decode_attention(q, k, v, bt, ln, k_scale=ks, v_scale=vs)
+    o2, l2 = ref.paged_decode_attention(q, k, v, bt, ln, k_scale=ks,
+                                        v_scale=vs)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == n0 + 1
+    assert pa.LAUNCHES_BY_PAGE[name] == n_var + 1
+    assert o.dtype == dtype
+    _close(o, o2, dtype)
+    torch.testing.assert_close(l, l2, atol=1e-4, rtol=1e-4)
+
+
+def test_quantized_paged_decode_rejects_bad_mixes():
+    """Quantized pages launch only with both float32 [P] scales; scales
+    with unquantized pages, or mixed page types, raise."""
+    q = torch.randn(2, 8, 16, device="cuda")
+    kf = torch.randn(4, 16, 2, 16, device="cuda")
+    k8 = kf.to(torch.float8_e4m3fn)
+    ki = kf.to(torch.int8)
+    sc = torch.ones(4, device="cuda")
+    bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+    ln = torch.ones(2, dtype=torch.int32, device="cuda")
+    n0 = pa.LAUNCHES
+    with pytest.raises(TypeError, match="scale"):
+        pa.paged_decode_attention(q, k8, k8, bt, ln)
+    with pytest.raises(TypeError, match="scale"):
+        pa.paged_decode_attention(q, ki, ki, bt, ln, k_scale=sc)
+    with pytest.raises(TypeError, match="scale"):
+        pa.paged_decode_attention(q, kf, kf, bt, ln, k_scale=sc, v_scale=sc)
+    with pytest.raises(TypeError, match="float32"):
+        pa.paged_decode_attention(q, k8, k8, bt, ln, k_scale=sc.double(),
+                                  v_scale=sc)
+    with pytest.raises(TypeError):
+        pa.paged_decode_attention(q, k8, ki, bt, ln, k_scale=sc, v_scale=sc)
+    with pytest.raises(TypeError):
+        pa.paged_decode_attention(q.half(), k8, k8, bt, ln, k_scale=sc,
+                                  v_scale=sc)
+    assert pa.LAUNCHES == n0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -10,6 +10,12 @@ port's transcript, so the reference compiles once per request.  The
 prefill scatter must equal the port's numpy loader and
 ``repro.core.migrate.load_prefill_kv`` bit for bit.
 """
+import os
+import subprocess
+import sys
+from dataclasses import fields
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -130,6 +136,203 @@ def test_dcp_decode_equals_reference(I, TP, kv):
                                              jnp.asarray(seq)[None, :])
         ref = np.asarray(ref_logits[0, len(toks) - 1:]).argmax(-1)
         assert ref.tolist() == gen[r], (I, TP, kv, r, ref.tolist(), gen[r])
+
+
+# --------------------------------------------------------------------------- #
+# quantized pools: the port's step against JAX's on the same inputs
+# --------------------------------------------------------------------------- #
+# Both steps start from the same quantized pools, so their logits differ only
+# by float32 rounding and, where an appended value's code falls the other way,
+# one quantization step of that value.  Worst |dlogit| seen here: 3.6e-6
+# (fp8) and 3.3e-3 (int8, one flipped code), on logits of std 1.0.  Swapping
+# k_scale and v_scale at the kernel call moves them by 2.3-2.4, flattening
+# the scales in (tp, I, F') order instead of the pools' (I, tp, F') by 4.6.
+STEP_LOGIT_TOL = 1e-2
+QUANT_STEPS = 3
+
+
+def _bytes(t: torch.Tensor) -> np.ndarray:
+    return t.contiguous().view(torch.uint8).numpy().copy()
+
+
+def _quant_port_run(kv_dtype: str, I: int, TP: int) -> dict:
+    """The port's prefill, quantized scatter and QUANT_STEPS decode steps;
+    records each step's tables, the state before and after it (pools as
+    raw bytes) and its logits."""
+    _, jparams, cfg, params = _models()
+    _, khs, ps = dcp.attn_tp_geometry(cfg, TP)
+    cluster = ClusterState(num_instances=I, instances_per_node=I,
+                           kv_capacity_tokens=2048, page_size=PAGE,
+                           kv_stripes=ps)
+    sched = DualBalancedScheduler(buckets=CPBuckets(edges=(100, 256),
+                                                    degrees=(1, 2, 3)),
+                                  has_kv=True)
+    rng = np.random.default_rng(0)
+    for r, L in PROMPTS.items():
+        cluster.enqueue(Request(rid=r, prompt_len=L, max_new_tokens=QUANT_STEPS))
+    assert len(sched.schedule(cluster).admitted) == len(PROMPTS)
+    nf = cluster.page_table.frames_per_instance + 1
+    dims0 = dcp.DecodeDims(M=2, S=2, N=8, MB=0, W=I, num_frames=nf,
+                           page=PAGE, data_size=I, tp=TP, kv_dtype=kv_dtype)
+    state = dcp.init_serve_state(cfg, dims0, I, dtype=torch.float32,
+                                 device="cpu")
+    scatter = migrate.PrefillScatter(cfg, dims0, I)
+    next_tok = {}
+    for r, L in PROMPTS.items():
+        toks = rng.integers(0, cfg.vocab_size, (L,))
+        logits, caches = transformer.forward(cfg, params,
+                                             torch.as_tensor(toks)[None],
+                                             collect_kv=True, device="cpu")
+        next_tok[r] = int(logits[0, -1].argmax())
+        k3 = caches[0]["kv"][0][:, 0][:, None]
+        v3 = caches[0]["kv"][1][:, 0][:, None]
+        scatter.scatter_kv(state, k3.reshape(*k3.shape[:3], khs, -1),
+                           v3.reshape(*v3.shape[:3], khs, -1),
+                           migrate.prefill_coords(cluster, r, PAGE, ps))
+    dparams = dcp.to_decode_params(cfg, params, TP)
+    dev_tables = routing.DeviceTables("cpu")
+    buckets = ShapeBuckets(m_buckets=(1, 2, 4, 8), s_buckets=(0, 1, 2, 4, 8),
+                           window=I)
+    rec = {"meta": np.array([I, TP, nf, QUANT_STEPS, PAGE]),
+           "kv_dtype": np.array(kv_dtype)}
+    for i, leaf in enumerate(jax.tree.leaves(jparams)):
+        rec[f"param/{i}"] = np.asarray(leaf)
+    for t in range(QUANT_STEPS):
+        plan = sched.schedule(cluster)
+        tbl = routing.lower_plan(cluster, plan, buckets=buckets,
+                                 append_tokens=True, next_tokens=next_tok)
+        d = dcp.DecodeDims(M=tbl.M, S=tbl.S, N=tbl.N, MB=tbl.MB, MBT=tbl.MBT,
+                           W=I, num_frames=nf, page=PAGE, data_size=I, tp=TP,
+                           kv_dtype=kv_dtype)
+        rec[f"{t}/dims"] = np.array([d.M, d.S, d.N, d.MB, d.MBT])
+        for f in fields(tbl):
+            v = getattr(tbl, f.name)
+            if isinstance(v, np.ndarray):
+                rec[f"{t}/tbl/{f.name}"] = v.astype(np.int32)
+        for k, v in state.items():
+            rec[f"{t}/pre/{k}"] = _bytes(v)
+        state, toks, logits = dcp.build_decode_step(cfg, d)(
+            dparams, state, routing.as_device_arrays(tbl, dev_tables))
+        for k, v in state.items():
+            rec[f"{t}/post/{k}"] = _bytes(v)
+        rec[f"{t}/logits"] = logits.numpy()
+        for r in PROMPTS:
+            i, b = cluster.slot_map[r]
+            next_tok[r] = int(toks[i, b])
+        for r in list(cluster.active):
+            cluster.active[r].generated += 1
+    return rec
+
+
+# The JAX side, run by ``python -c`` in a process with I*TP host devices:
+# JAX's quantized step (``repro.core.dcp``) on each recorded step's
+# pre-state and tables, with the JAX params the port's were made from.
+_JAX_QUANT_STEPS = r"""
+import sys
+import jax, jax.numpy as jnp, numpy as np
+from repro import compat
+from repro.configs import CONFIGS, reduced
+from repro.core import dcp
+from repro.models import init_params
+
+rec = dict(np.load(sys.argv[1]))
+I, TP, nf, steps, page = (int(x) for x in rec["meta"])
+kv_dtype = str(rec["kv_dtype"])
+cfg = reduced(CONFIGS["tinyllama-1.1b"], vocab_size=256)
+tree = jax.tree.structure(jax.eval_shape(
+    lambda: init_params(jax.random.PRNGKey(0), cfg)))
+params = jax.tree.unflatten(tree, [jnp.asarray(rec[f"param/{i}"])
+                                   for i in range(tree.num_leaves)])
+code_dt = jnp.float8_e4m3fn if kv_dtype == "fp8" else np.int8
+mesh = compat.make_mesh((I, TP), ("data", "model"))
+dparams = jax.jit(lambda p: dcp.to_decode_params(cfg, p, TP))(params)
+out, fns = {}, {}
+for t in range(steps):
+    key = tuple(int(x) for x in rec[f"{t}/dims"])
+    M, S, N, MB, MBT = key
+    d = dcp.DecodeDims(M=M, S=S, N=N, MB=MB, MBT=MBT, W=I, num_frames=nf,
+                       page=page, data_size=I, tp=TP, kv_dtype=kv_dtype)
+    state = {k: jnp.asarray(rec[f"{t}/pre/{k}"].view(
+                 code_dt if "pool" in k else np.float32))
+             for k in ("k_pool", "v_pool", "k_scale", "v_scale")}
+    tbl = {k.split("/")[-1]: jnp.asarray(v) for k, v in rec.items()
+           if k.startswith(f"{t}/tbl/")}
+    if key not in fns:
+        fns[key] = dcp.make_serve_step(cfg, d, mesh, dparams, state, tbl,
+                                       donate=False)
+    state, _, logits = fns[key](dparams, state, tbl)
+    for k, v in state.items():
+        out[f"{t}/post/{k}"] = np.ascontiguousarray(np.asarray(v)).view(np.uint8)
+    out[f"{t}/logits"] = np.asarray(logits, np.float32)
+np.savez(sys.argv[2], **out)
+"""
+
+
+def _code_step(codes: np.ndarray, kv_dtype: str) -> np.ndarray:
+    """One quantization step at each code's magnitude (the spacing of
+    int8, or of fp8 e4m3 with its 3 mantissa bits and subnormals below
+    2**-6)."""
+    if kv_dtype == "int8":
+        return np.ones_like(codes)
+    e = np.floor(np.log2(np.maximum(np.abs(codes), 2.0 ** -6)))
+    return 2.0 ** (e - 3)
+
+
+@pytest.mark.parametrize("kv_dtype,I,TP", [("fp8", 4, 2), ("int8", 2, 2)],
+                         ids=["fp8-4x2", "int8-2x2"])
+def test_dcp_quantized_step_matches_jax(kv_dtype, I, TP, tmp_path):
+    """Both steps from the same quantized pools and tables, every step:
+
+      * scales bit-equal, except a page an offset-0 append set from this
+        token's KV, whose float32 projection the two frameworks round
+        differently: there within a relative 1e-5;
+      * pool codes bit-equal except at this step's appends, and every
+        dequantized value within one quantization step at its magnitude
+        (plus a relative 1e-5 for the scale);
+      * logits within ``STEP_LOGIT_TOL`` (1e-2), far inside the lossy
+        serving bound: the same quantized inputs give the same attention.
+
+    The JAX step needs I*TP devices, so it runs in a subprocess with forced
+    host devices.  Scratch frames (last of each sub-pool) take repeated
+    writes in either order and are not compared."""
+    rec = _quant_port_run(kv_dtype, I, TP)
+    f_in, f_out = tmp_path / "port.npz", tmp_path / "jax.npz"
+    np.savez(f_in, **rec)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    proc = subprocess.run([sys.executable, "-c", _JAX_QUANT_STEPS, str(f_in),
+                           str(f_out)], env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    jout = dict(np.load(f_out))
+    code_dt = torch.float8_e4m3fn if kv_dtype == "fp8" else torch.int8
+    for t in range(QUANT_STEPS):
+        lg_p, lg_j = rec[f"{t}/logits"], jout[f"{t}/logits"]
+        assert np.max(np.abs(lg_p - lg_j)) <= STEP_LOGIT_TOL, t
+        act = rec[f"{t}/tbl/slot_active"] != 0
+        af, ao = rec[f"{t}/tbl/append_frame"], rec[f"{t}/tbl/append_off"]
+        for kind in ("k", "v"):
+            sp = rec[f"{t}/post/{kind}_scale"].view(np.float32)[..., :-1]
+            sj = jout[f"{t}/post/{kind}_scale"].view(np.float32)[..., :-1]
+            fresh = np.zeros(sp.shape[2:], bool)        # [I, tp, F'-1]
+            appended = np.zeros(sp.shape[2:] + (PAGE,), bool)
+            for i, b in zip(*np.nonzero(act)):
+                appended[i, :, af[i, b], ao[i, b]] = True
+                fresh[i, :, af[i, b]] |= ao[i, b] == 0
+            same = sp == sj
+            assert same[:, :, ~fresh].all(), (t, kind)
+            np.testing.assert_allclose(sp, sj, rtol=1e-5, atol=0)
+            cp = torch.from_numpy(rec[f"{t}/post/{kind}_pool"]).view(
+                code_dt).float().numpy()[..., :-1, :, :]
+            cj = torch.from_numpy(jout[f"{t}/post/{kind}_pool"]).view(
+                code_dt).float().numpy()[..., :-1, :, :]
+            assert (cp == cj)[:, :, ~appended].all(), (t, kind)
+            dp, dj = cp * sp[..., None, None], cj * sj[..., None, None]
+            step = np.maximum(_code_step(cp, kv_dtype), _code_step(cj, kv_dtype))
+            bound = (step * np.maximum(sp, sj)[..., None, None]
+                     + 1e-5 * np.abs(dj))
+            assert (np.abs(dp - dj) <= bound).all(), (t, kind)
 
 
 # --------------------------------------------------------------------------- #

@@ -94,11 +94,12 @@ def test_unported_paths_raise_not_implemented():
     kw = dict(num_instances=1, instances_per_node=1, kv_capacity_tokens=128,
               tp=1, device="cpu")
     for extra, item in ((dict(backend="dense"), "item 4"),
-                        (dict(kv_dtype="fp8"), "item 8"),
                         (dict(prefix_cache=True), "item 13"),
                         (dict(prefill_cells=1), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             NanoCPEngine(cfg, params, **kw, **extra)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        NanoCPEngine(cfg, params, **kw, kv_dtype="fp16")
     eng = NanoCPEngine(cfg, params, **kw)
     for call, item in ((lambda: eng.add_audio_request(None, []), "item 12"),
                        (lambda: eng.drain_instance(0), "item 7"),
