@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase, then the result line
+    python3 chip_smoke.py --kernels    # phases 1-2 only, no result line
 
 Phases, each printing one JSON line:
 
@@ -12,7 +13,12 @@ Phases, each printing one JSON line:
                plain and library device times (CUDA events, L2 flushed
                between launches) beside the bound.  The paged kernel also
                runs on fp8 and int8 quantized pages with per-page scales,
-               for float32 and bfloat16 queries (same tolerances).
+               for float32 and bfloat16 queries (same tolerances).  Each
+               timed row carries its share of the bound (bound_ms / ms).
+               Edge rows ("kernel-edge") hold both kernels at the split and
+               tile boundaries, MB = 1, zero-length rows, v as a strided
+               view of k (MLA's 40 / 32 head dims), bf16 head dims 16-256,
+               kv_len inside one tile and Dk != Dv.
   3. engine  — full-width TinyLlama-1.1B (random float32 weights, seed 0)
                through NanoCPEngine on a virtual (I=4, TP=2) mesh, pipelined
                and not; every transcript is checked teacher-forced against
@@ -21,7 +27,8 @@ Phases, each printing one JSON line:
   4. profile — a third pipelined run: torch.profiler over 5 steady steps
                (device time by kernel, busy share, launches), and the paged
                kernel re-checked and re-timed on the largest call the main
-               path made.
+               path made; then one prefill forward of the 2000-token prompt
+               profiled (device time, the flash kernel's share).
   5. quant   — the same engine and traffic with fp8, then int8 KV pools
                (codes plus per-page scales), pipelined, held to the
                reference's tolerance contract against the greedy forward
@@ -241,7 +248,7 @@ def paged_row(args, dtype, label: str) -> dict:
                       "zero_rows": int((lengths == 0).sum())},
             "max_abs_err": err, "tol": TOL[dtype], "ms": ms,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": None}
+            "share_of_bound": bms / ms, "library_ms": None}
 
 
 def run_kernel_phase(gen) -> dict:
@@ -282,9 +289,80 @@ def run_kernel_phase(gen) -> dict:
                         qt, kt, vt, is_causal=True, enable_gqa=True))
                 b, f = flash_cost(q, k, v, kl, qo)
                 row["bound_ms"], row["bound_by"] = bound_ms(b, f, dtype)
+                row["share_of_bound"] = row["bound_ms"] / row["ms"]
             emit(row)
             summary.setdefault("flash_fwd", []).append(row)
+    run_edge_checks(gen)
     return summary
+
+
+def edge_row(name: str, case: str, dtype, got, want) -> None:
+    """Hold one edge case's (out, lse) against the plain version's."""
+    dn = str(dtype).replace("torch.", "")
+    torch.cuda.synchronize()
+    err = max(check_close(f"{name} {dn} {case} out", got[0], want[0], dtype),
+              check_close(f"{name} {dn} {case} lse", got[1], want[1], dtype))
+    emit({"phase": "kernel-edge", "name": name, "dtype": dn, "case": case,
+          "max_abs_err": err, "tol": TOL[dtype]})
+
+
+def flash_edge(gen, dtype, B, Sq, Skv, Dk, Dv, kv_len=None, q_offset=0,
+               causal=True) -> None:
+    """One flash edge case at 32 q / 4 kv heads."""
+    q = torch.randn(B, Sq, 32, Dk, device=DEV, generator=gen).to(dtype)
+    k = torch.randn(B, Skv, 4, Dk, device=DEV, generator=gen).to(dtype)
+    v = torch.randn(B, Skv, 4, Dv, device=DEV, generator=gen).to(dtype)
+    kl = (None if kv_len is None
+          else torch.tensor(kv_len, dtype=torch.int32, device=DEV))
+    kw = dict(causal=causal, kv_len=kl, q_offset=q_offset)
+    edge_row("flash_fwd", f"B {B} Sq {Sq} Skv {Skv} Dk {Dk} Dv {Dv} kv_len "
+             f"{kv_len} q_offset {q_offset} causal {causal}", dtype,
+             fa.flash_attention(q, k, v, **kw), ref.flash_attention(q, k, v, **kw))
+
+
+def run_edge_checks(gen) -> None:
+    """The split-KV and tiled kernels at their edges, at the main path's
+    widths (paged rows of 2 kv heads x G 8, hd 64; flash 32 q / 4 kv heads
+    of 64): paged rows ending on a split boundary, spanning every split,
+    zero rows between full ones, MB = 1, fp8/int8 through the split path,
+    and v as a strided view of k at MLA's head dims (40 / 32); flash at
+    Sq/Skv one off the 64-row tiles, kv_len inside one tile, bf16 head dims
+    16-256, and Dk != Dv."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bt, lengths = paged_inputs(dtype, gen)
+        N, MB, page = q.shape[0], bt.shape[1], k.shape[1]
+        pps = pa.plan_split(N, k.shape[2], MB, sms)
+        edge = [pps * page, 2 * pps * page, pps * page + 1, MB * page, 0,
+                MB * page, 0, 0, MB * page, 1]
+        lengths[:len(edge)] = torch.tensor(edge, dtype=torch.int32, device=DEV)
+        full = (q, k, v, bt, lengths)
+        one = (q, k, v, bt[:, :1], lengths.clamp(max=page))
+        for kv in (None, "fp8", "int8"):
+            for case, a in ((f"split edges (pps {pps})", full), ("MB = 1", one)):
+                a = a if kv is None else quantize_pages(a, kv)
+                kw = {} if kv is None else {"k_scale": a[5], "v_scale": a[6]}
+                edge_row(paged_variant(a[1]), case, dtype,
+                         pa.paged_decode_attention(*a[:5], **kw),
+                         ref.paged_decode_attention(*a[:5], **kw))
+        # MLA's layout: one latent pool, v = k[..., :32], copied by nobody
+        lat = torch.randn(k.shape[0], page, 1, 40, device=DEV,
+                          generator=gen).to(dtype)
+        ql = torch.randn(N, 16, 40, device=DEV, generator=gen).to(dtype)
+        edge_row("paged_decode", "v = k[..., :32] (Dk 40)", dtype,
+                 pa.paged_decode_attention(ql, lat, lat[..., :32], bt, lengths),
+                 ref.paged_decode_attention(ql, lat, lat[..., :32].contiguous(),
+                                            bt, lengths))
+        for n in (63, 65, 127, 129):
+            flash_edge(gen, dtype, 1, n, n, 64, 64)
+        for causal in (True, False):
+            flash_edge(gen, dtype, 2, 150, 150, 64, 64, kv_len=[17, 5],
+                       causal=causal)
+        flash_edge(gen, dtype, 1, 65, 129, 64, 64, q_offset=64)
+        flash_edge(gen, dtype, 2, 70, 90, 64, 32, kv_len=[90, 33], q_offset=20)
+        if dtype == torch.bfloat16:
+            for d in (16, 24, 40, 96, 256):
+                flash_edge(gen, dtype, 2, 77, 77, d, d, kv_len=[77, 50])
 
 
 # --------------------------------------------------------------------------- #
@@ -573,6 +651,32 @@ def profile_engine(cfg, params, prompts) -> dict:
     return cap.args
 
 
+def profile_prefill(cfg, params, prompt) -> dict:
+    """Device time of one prefill forward (with KV collection, as the
+    engine runs it) of the longest prompt, by ``torch.profiler``: all
+    kernels, and the flash kernel's share."""
+    toks = torch.as_tensor(prompt, device=DEV)[None]
+    with torch.no_grad():
+        transformer.forward(cfg, params, toks, collect_kv=True, device=DEV)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            transformer.forward(cfg, params, toks, collect_kv=True, device=DEV)
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    flash = [e for e in events if "flash_fwd" in e.key]
+    row = {"phase": "prefill", "prompt_len": len(prompt),
+           "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
+           "flash_ms": sum(e.self_device_time_total for e in flash) / 1e3,
+           "flash_launches": sum(e.count for e in flash),
+           "kernel_launches": sum(e.count for e in events)}
+    emit(row)
+    return row
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -587,6 +691,8 @@ def main() -> None:
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     ksum = run_kernel_phase(gen)
+    if "--kernels" in sys.argv[1:]:
+        return      # kernel phase only: no engine phases, no result line
 
     cfg = get_config("tinyllama-1.1b")
     params = transformer.init_params(cfg, seed=0, device=DEV,
@@ -595,6 +701,7 @@ def main() -> None:
     prompts = [rng.integers(0, cfg.vocab_size, (L,)) for L in PROMPT_LENS]
     runs = [run_engine(cfg, params, prompts, pipeline=p) for p in (True, False)]
     main_args = profile_engine(cfg, params, prompts)
+    profile_prefill(cfg, params, prompts[int(np.argmax(PROMPT_LENS))])
     # the paged kernel at the largest call the main path made (float32 pools)
     main_row = paged_row(main_args, torch.float32, "main path")
     emit(main_row)
@@ -637,8 +744,9 @@ def main() -> None:
              runs[0]["launches"]["flash_fwd"])):
         rows = ksum[name]
         # the timing at the main path's shapes: the captured paged call, and
-        # the 2000-token prompt's prefill attention
+        # the 2000-token prompt's prefill attention; bf16 q beside it
         timed = [r for r in rows if r["dtype"] == "float32" and "ms" in r][-1]
+        bf16 = [r for r in rows if r["dtype"] == "bfloat16" and "ms" in r][-1]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": repl,
             "launches": launches,
@@ -646,7 +754,10 @@ def main() -> None:
                                if r["dtype"] == "float32"),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-            "library_ms": timed["library_ms"]})
+            "library_ms": timed["library_ms"],
+            "share_of_bound": timed["share_of_bound"],
+            "bf16_ms": bf16["ms"], "bf16_bound_ms": bf16["bound_ms"],
+            "bf16_library_ms": bf16["library_ms"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,8 @@
 // version src/repro_torch/kernels/ref.py::paged_decode_attention:
 //
 //   q            [N, Hq, Dk]         one query token per work row
-//   k_pages      [P, page, Hkv, Dk]
-//   v_pages      [P, page, Hkv, Dv]
+//   k_pages      [P, page, Hkv, Dk]  any page/token/head strides, last dim 1
+//   v_pages      [P, page, Hkv, Dv]  its own strides (may be a view of k)
 //   block_tables [N, MB]  int32      page ids per row
 //   lengths      [N]      int32      valid kv tokens per row; 0 -> inactive
 //   out          [N, Hq, Dv]         q's dtype
@@ -17,227 +17,512 @@
 //
 // Types: q and out are Tq (float or bfloat16).  Pages are Tkv: Tq itself,
 // or a quantized pool of fp8 e4m3 or int8 codes with one float32 scale per
-// page (src/repro_torch/kernels/quant.py).  For a quantized pool the fused
-// dequant of the Pallas kernel's quantized branch happens at staging: each
-// code is upcast to float32 and multiplied by its page's scale on its way
-// into shared memory (upcast, then multiply, in the Pallas order).  No
-// dequantized copy of the pool ever exists in device memory.
-//
-// Design.  One block per (work row, kv head).  The Pallas kernel's
-// sequential page axis becomes a loop split over the block's warps (up to
-// 16, as many as their shared memory fits): warp w takes pages w,
-// w + nwarps, ...  Each warp stages its page's valid K and V rows in its
-// own float32 shared memory and keeps its own online-softmax state
-// (running max, sum and accumulator of the G heads), so warps never wait
-// for each other inside the loop.  At the end the warps' states are merged
-// by their log-sum-exp, as Phase 4 merges CP shards.  Every K/V byte is
-// read from device memory once per (row, kv head).  The load and
-// accumulate loops use no runtime division.
+// page (src/repro_torch/kernels/quant.py).
 //
 // What bounds it: the K/V bytes (1 per value in a quantized pool).  One
 // query row per kv head does about 2*G flops per K/V element, far below
 // the ~295 flop/byte at which the H100's tensor cores would become the
-// limit, so the kernel uses CUDA cores.  But one block serves a (row, kv
-// head), so a call with few long rows keeps few SMs busy, each walking its
-// pages with CUDA-core dot products from shared memory.  Splitting rows across blocks (split-KV) and cp.async/TMA
-// staging are the steps that would approach the bandwidth bound.
+// limit, so the products stay on CUDA cores.  To move bytes at the card's
+// rate the design keeps many pages in flight on every SM:
+//
+// * Split-KV.  The grid is (N, Hkv, S): block (n, h, s) takes pages
+//   [s*pps, (s+1)*pps) of row n, where the wrapper picks pages_per_split
+//   (pps) from the static shapes so that full rows give several blocks per
+//   SM.  For S > 1 the blocks write float32 partials (out [N,Hq,S,Dv], lse
+//   [N,Hq,S]) into the caller's scratch and merge_kernel, launched from the
+//   same C entry, merges them by their log-sum-exp into out (q's dtype) and
+//   lse, as ref.merge_lse does.  A split at or past its row's length is
+//   empty (out 0, lse -1e30): its block writes the lse and exits, and the
+//   merge skips it.  For S == 1 the first kernel writes the result itself.
+// * A ring of pages in flight.  A block of 8 warps walks its split in
+//   units of 32 tokens (a unit may span pages, whose ids and scales the
+//   block loads into shared memory once).  Three units sit in a
+//   shared-memory ring, filled by cp.async copies of 16 bytes (16 fp8/int8
+//   codes, 8 bf16 or 4 f32 values; 8 or 4 bytes where the strides are not
+//   16-byte multiples), a warp per token and its lanes over the token's K
+//   and V rows, while the block computes on the oldest.  Shared memory
+//   stages K and V and passes scores and probabilities between the three
+//   steps of a unit; every staged value is read once into registers,
+//   where q, the partial dots and the (head, 4-column) accumulators live.
+// * Latency, not bytes, sets the time at decode sizes: a split walks a
+//   few units one after another, so each unit's steps, its copies
+//   included, are spread over all 256 threads, and its loops stay rolled.
+// * Fused dequant.  A quantized unit is read from the ring as raw codes;
+//   each token's page's k scale multiplies its score and its v scale its
+//   probability, so no dequantized pool exists in device memory.
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxWarps = 16;
+constexpr int kUnit = 32;       // tokens per ring stage: one per lane
+constexpr int kPS = kUnit + 4;  // p_s row stride: a warp's 8 heads, 8 bank groups
+constexpr int kMaxStages = 3;   // ring depth
+constexpr int kMaxPairs = 16;   // (head, 4-column) accumulators per thread
+constexpr int kThreads = 256;   // 8 warps per block
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
-__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Floats of one warp's shared state:
-//   k_s   [page][Dk + 1]  the page's K rows (padded against bank conflicts)
-//   v_s   [page][Dv]      the page's V rows
-//   p_s   [G][page]       scores, then probabilities
-//   acc_s [G][Dv]         running accumulator
-//   m_s, l_s, c_s [G]     running max, running sum, this page's correction
-__host__ __device__ inline size_t warp_floats(int G, int Dk, int Dv, int page) {
-  return (size_t)page * (Dk + 1) + (size_t)page * Dv + (size_t)G * page +
-         (size_t)G * Dv + 3 * (size_t)G;
+// Four consecutive values (columns 4*d4 .. 4*d4+3) of a row staged in
+// shared memory, as float32; quantized codes are returned unscaled.
+template <typename T> __device__ __forceinline__ float4 load4(const char* row, int d4);
+template <> __device__ __forceinline__ float4 load4<float>(const char* row, int d4) {
+  return *reinterpret_cast<const float4*>(row + 16 * d4);
+}
+template <> __device__ __forceinline__ float4 load4<__nv_bfloat16>(const char* row, int d4) {
+  const uint2 w = *reinterpret_cast<const uint2*>(row + 8 * d4);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+template <> __device__ __forceinline__ float4 load4<__nv_fp8_e4m3>(const char* row, int d4) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(row + 4 * d4);
+  __nv_fp8_e4m3 c[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i].__x = static_cast<__nv_fp8_storage_t>((w >> (8 * i)) & 0xffu);
+  return make_float4(static_cast<float>(c[0]), static_cast<float>(c[1]),
+                     static_cast<float>(c[2]), static_cast<float>(c[3]));
+}
+template <> __device__ __forceinline__ float4 load4<int8_t>(const char* row, int d4) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(row + 4 * d4);
+  return make_float4(static_cast<float>(static_cast<int8_t>(w & 0xffu)),
+                     static_cast<float>(static_cast<int8_t>((w >> 8) & 0xffu)),
+                     static_cast<float>(static_cast<int8_t>((w >> 16) & 0xffu)),
+                     static_cast<float>(static_cast<int8_t>(w >> 24)));
 }
 
-// Shared memory: q_s [G][Dk] (scaled queries, shared by all warps), then
-// one warp_floats() region per warp.
-template <typename Tq, typename Tkv>
-__global__ void paged_decode_kernel(const Tq* __restrict__ q,
-                                    const Tkv* __restrict__ k_pages,
-                                    const Tkv* __restrict__ v_pages,
-                                    const float* __restrict__ k_scale,
-                                    const float* __restrict__ v_scale,
-                                    const int32_t* __restrict__ block_tables,
-                                    const int32_t* __restrict__ lengths,
-                                    Tq* __restrict__ out,
-                                    float* __restrict__ lse,
-                                    int Hq, int Hkv, int Dk, int Dv, int page,
-                                    int MB, float scale) {
-  // a 1-byte page type is a quantized pool (fp8 e4m3 or int8 codes)
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// cp.async of `bytes` (<= gran) bytes into a gran-byte slot, zero-filling
+// the rest; gran is 16, 8 or 4 and both addresses are gran-aligned.
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int gran, int bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (gran == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+  else if (gran == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// wait until at most n of this thread's groups are pending (n < kMaxStages)
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 2;\n" ::); break;
+  }
+}
+
+struct Args {
+  const void* q;
+  const char* k;          // byte pointers; strides below are in bytes
+  const char* v;
+  const float* k_scale;
+  const float* v_scale;
+  const int32_t* bt;
+  const int32_t* len;
+  void* out;
+  float* lse;
+  float* part_out;        // S > 1: [N][Hq][S][Dv]
+  float* part_lse;        //        [N][Hq][S]
+  long long k_sp, k_st, k_sh, v_sp, v_st, v_sh;
+  int Hq, Hkv, Dk, Dv, page, MB, pps, S;
+  int nstages;            // ring depth, 2..kMaxStages
+  int gran;               // cp.async size in bytes: 16, 8 or 4
+  int tpt;                // scores: lanes per token (2*tpt 4-value chunks cover Dk)
+  int tgroups;            // p @ v: token groups (kThreads / tgroups threads each)
+  int page_shift;         // log2(page) when page is a power of two, else -1
+  int rowk, rowv;         // bytes of one staged K / V row (16-byte multiples)
+  int head_bytes;         // shared bytes before the ring
+  float scale;
+};
+
+// Tokens of the split [t_begin, t_end) of a row; empty when the split
+// starts at or past the row's length.
+__device__ __forceinline__ int2 split_tokens(const Args& a, int length, int s) {
+  const int t_begin = s * a.pps * a.page;
+  const int t_end = min(min(length, a.MB * a.page), min((s + 1) * a.pps, a.MB) * a.page);
+  return make_int2(t_begin, t_end);
+}
+
+// Block (n, h, s): tokens [t_begin, t_end) of row n, kv head h, walked by
+// kThreads threads in units of kUnit tokens (a unit may span pages).  Per
+// unit, three steps with a barrier after each:
+//  - scores: threads (token, dim lane) dot each staged K value once
+//    against 8 heads' q held in registers and sum across their lanes by
+//    shuffles;
+//  - softmax: a warp per head, lane = token, with the running max and sum
+//    in shared memory;
+//  - p @ v: thread (token group, pair) accumulates a (head, 4-column) pair
+//    of the output over its group's tokens, in registers; the lanes of a
+//    warp run over the heads, so a staged V value is read once per group.
+// The groups' accumulators are summed once, at the end.  Every loop that
+// runs once per unit stays rolled, so the unit's code is small.
+//
+// Shared memory: q_s [G][Dk4*4] f32 (q*scale, zero-padded), p_s [G][kPS]
+// scores, then probabilities (times the v scale), c_s [G] this unit's
+// corrections, m_s and l_s [G] the running max and sum, bt_s [pps] the
+// split's page ids, ks_s/vs_s [pps] their scales; then the ring: nstages x
+// (K [kUnit][rowk], V [kUnit][rowv]).
+template <typename Tq, typename Tkv, int kPairs>
+__global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
   constexpr bool kQuant = sizeof(Tkv) == 1;
-  extern __shared__ float smem[];
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ __align__(16) char smem[];
   const int n = blockIdx.x;
   const int h = blockIdx.y;
-  const int G = Hq / Hkv;
+  const int s = blockIdx.z;
+  const int G = a.Hq / a.Hkv;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int kstride = Dk + 1;
-  const size_t wfl = warp_floats(G, Dk, Dv, page);
+  const int Dk4 = (a.Dk + 3) >> 2;
+  const int Dv4 = (a.Dv + 3) >> 2;
+  const int hq0 = h * G;
+  const int npairs = G * Dv4;
+  const int b0 = s * a.pps;                        // the split's first page
+  const int npg = min(a.pps, a.MB - b0);
 
-  const int length = lengths[n];
-  const size_t q_base = ((size_t)n * Hq + (size_t)h * G) * Dk;
-  const size_t o_base = ((size_t)n * Hq + (size_t)h * G) * Dv;
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* p_s = q_s + G * Dk4 * 4;
+  float* c_s = p_s + G * kPS;
+  float* m_s = c_s + G;
+  float* l_s = m_s + G;
+  int* bt_s = reinterpret_cast<int*>(l_s + G);
+  float* ks_s = reinterpret_cast<float*>(bt_s + a.pps);
+  float* vs_s = ks_s + a.pps;
+  char* ring = smem + a.head_bytes;
 
-  if (length <= 0) {
-    for (int i = tid; i < G * Dv; i += blockDim.x) out[o_base + i] = from_f<Tq>(0.f);
-    for (int g = tid; g < G; g += blockDim.x) lse[(size_t)n * Hq + h * G + g] = kNegInf;
+  // the page ids load beside the length, not after it
+  const int32_t* bt = a.bt + (size_t)n * a.MB + b0;
+  for (int i = tid; i < npg; i += kThreads) bt_s[i] = bt[i];
+  const int2 span = split_tokens(a, a.len[n], s);
+  const int t_begin = span.x, t_end = span.y;
+
+  if (t_begin >= t_end) {
+    // an empty split: lse -1e30, out 0 (a partial's out is never read
+    // where its lse is -1e30)
+    if (a.S == 1) {
+      Tq* out = static_cast<Tq*>(a.out) + ((size_t)n * a.Hq + hq0) * a.Dv;
+      for (int i = tid; i < G * a.Dv; i += kThreads) out[i] = from_f<Tq>(0.f);
+      for (int g = tid; g < G; g += kThreads) a.lse[(size_t)n * a.Hq + hq0 + g] = kNegInf;
+    } else {
+      for (int g = tid; g < G; g += kThreads)
+        a.part_lse[((size_t)n * a.Hq + hq0 + g) * a.S + s] = kNegInf;
+    }
     return;
   }
+  __syncthreads();   // bt_s
 
-  float* q_s = smem;
-  float* w_s = q_s + (size_t)G * Dk;          // first warp's region
-  float* k_s = w_s + warp * wfl;
-  float* v_s = k_s + page * kstride;
-  float* p_s = v_s + page * Dv;
-  float* acc_s = p_s + G * page;
-  float* m_s = acc_s + G * Dv;
-  float* l_s = m_s + G;
-  float* c_s = l_s + G;
+  const int stage_bytes = kUnit * (a.rowk + a.rowv);
+  const int nunits = (t_end - t_begin + kUnit - 1) / kUnit;
+  const int kbytes = a.Dk * (int)sizeof(Tkv);
+  const int vbytes = a.Dv * (int)sizeof(Tkv);
+  const int kch = ((kbytes + 15) & ~15) / a.gran;   // copies per staged row
+  const int vch = ((vbytes + 15) & ~15) / a.gran;
 
+  // stage unit u into ring slot st: a warp per token, its lanes over the
+  // token's K and V chunks; only valid tokens are copied (and read)
+  auto issue = [&](int u, int st) {
+    const int t0 = t_begin + u * kUnit;
+    const int valid = min(kUnit, t_end - t0);
+    char* sk = ring + st * stage_bytes;
+    char* sv = sk + kUnit * a.rowk;
+#pragma unroll 1
+    for (int t = warp; t < valid; t += kWarps) {
+      const int tok = t0 + t;
+      const int b = a.page_shift >= 0 ? tok >> a.page_shift : tok / a.page;
+      const long long pid = bt_s[b - b0];
+      const long long off = tok - b * a.page;
+      const char* kr = a.k + pid * a.k_sp + off * a.k_st + (long long)h * a.k_sh;
+      const char* vr = a.v + pid * a.v_sp + off * a.v_st + (long long)h * a.v_sh;
+#pragma unroll 1
+      for (int c = lane; c < kch + vch; c += 32) {
+        const bool is_k = c < kch;
+        const int cc = is_k ? c : c - kch;
+        const int bytes = min(max((is_k ? kbytes : vbytes) - cc * a.gran, 0), a.gran);
+        const char* src = (is_k ? kr : vr) + (bytes ? cc * a.gran : 0);
+        cp_async((is_k ? sk + t * a.rowk : sv + t * a.rowv) + cc * a.gran, src, a.gran, bytes);
+      }
+    }
+  };
+
+  const int NS = a.nstages;
+  for (int u = 0; u < NS - 1; ++u) {
+    if (u < nunits) issue(u, u);
+    cp_async_commit();
+  }
+  if constexpr (kQuant) {
+    for (int i = tid; i < npg; i += kThreads) {
+      ks_s[i] = a.k_scale[bt_s[i]];
+      vs_s[i] = a.v_scale[bt_s[i]];
+    }
+  }
   // q * scale, rounded to Tq as the plain version does before the product
-  for (int i = tid; i < G * Dk; i += blockDim.x)
-    q_s[i] = to_f(from_f<Tq>(to_f(q[q_base + i]) * scale));
-  for (int i = lane; i < G * Dv; i += 32) acc_s[i] = 0.f;
-  for (int g = lane; g < G; g += 32) {
+  const Tq* qp = static_cast<const Tq*>(a.q) + ((size_t)n * a.Hq + hq0) * a.Dk;
+  for (int i = tid; i < G * Dk4 * 4; i += kThreads) {
+    const int g = i / (Dk4 * 4), d = i - g * (Dk4 * 4);
+    q_s[i] = d < a.Dk ? to_f(from_f<Tq>(to_f(qp[g * a.Dk + d]) * a.scale)) : 0.f;
+  }
+  for (int g = tid; g < G; g += kThreads) {
     m_s[g] = kNegInf;
     l_s[g] = 0.f;
   }
-  __syncthreads();
 
-  const int npages = (length + page - 1) / page;
-  const int32_t* bt = block_tables + (size_t)n * MB;
-  for (int b = warp; b < npages; b += nwarps) {
-    const size_t pid = (size_t)bt[b];
-    const int valid = min(page, length - b * page);
-    // stage the page's valid K and V rows of kv head h: lanes walk the
-    // head dim (coalesced), and the token loop is unrolled so that several
-    // independent loads are in flight per lane.  A quantized page is
-    // dequantized here with its two scales, read once per page.
-    const Tkv* kp = k_pages + (pid * page * Hkv + h) * Dk;   // token t at t*Hkv*Dk
-    const Tkv* vp = v_pages + (pid * page * Hkv + h) * Dv;
-    float ks = 1.f, vs = 1.f;
-    if constexpr (kQuant) {
-      ks = k_scale[pid];
-      vs = v_scale[pid];
-    }
-    for (int d = lane; d < Dk; d += 32) {
-#pragma unroll 8
-      for (int t = 0; t < valid; ++t) {
-        const float x = to_f(kp[(size_t)t * Hkv * Dk + d]);
-        k_s[t * kstride + d] = kQuant ? x * ks : x;
+  // the scores' layout: tpt lanes per token (a power of two)
+  const int tpt = a.tpt;
+  const int t_dim = tid / tpt, c_dim = tid - t_dim * tpt;
+  // p @ v's layout: tgc token groups of P threads; pair r + j*P
+  const int tgc = a.tgroups;
+  const int P = kThreads / tgc;
+  const int tg = tid / P, r = tid - tg * P;
+  float acc[kPairs][4];
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+#pragma unroll 1
+  for (int u = 0; u < nunits; ++u) {
+    cp_async_wait(NS - 2);   // unit u has landed (this thread's copies)
+    __syncthreads();         // ... everyone's; slot (u-1)%NS and p_s are free
+    if (u + NS - 1 < nunits) issue(u + NS - 1, (u + NS - 1) % NS);
+    cp_async_commit();
+
+    const char* sk = ring + (u % NS) * stage_bytes;
+    const char* sv = sk + kUnit * a.rowk;
+    const int t0 = t_begin + u * kUnit;
+    const int valid = min(kUnit, t_end - t0);
+
+    // scores: K row t's 4-value chunks c and c + tpt against 8 heads' q
+#pragma unroll 1
+    for (int g0 = 0; g0 < G; g0 += 8) {
+      float4 qr[8][2];
+#pragma unroll
+      for (int hh = 0; hh < 8; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d4 = c_dim + e * tpt;
+          qr[hh][e] = g0 + hh < G && d4 < Dk4
+                          ? reinterpret_cast<const float4*>(q_s)[(g0 + hh) * Dk4 + d4]
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll 1
+      for (int t = t_dim; t < kUnit; t += kThreads / tpt) {
+        float sd[8];
+#pragma unroll
+        for (int hh = 0; hh < 8; ++hh) sd[hh] = 0.f;
+        if (t < valid) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d4 = c_dim + e * tpt;
+            if (d4 < Dk4) {
+              const float4 x = load4<Tkv>(sk + t * a.rowk, d4);
+#pragma unroll
+              for (int hh = 0; hh < 8; ++hh) sd[hh] = dot4(qr[hh][e], x, sd[hh]);
+            }
+          }
+        }
+#pragma unroll 1
+        for (int o = tpt >> 1; o > 0; o >>= 1)
+#pragma unroll
+          for (int hh = 0; hh < 8; ++hh) sd[hh] += __shfl_xor_sync(0xffffffffu, sd[hh], o);
+        if (c_dim == 0) {
+          float ksc = 1.f;
+          if constexpr (kQuant)
+            if (t < valid) ksc = ks_s[(t0 + t) / a.page - b0];
+#pragma unroll
+          for (int hh = 0; hh < 8; ++hh)
+            if (g0 + hh < G) p_s[(g0 + hh) * kPS + t] = t < valid ? sd[hh] * ksc : kNegInf;
+        }
       }
     }
-    for (int d = lane; d < Dv; d += 32) {
-#pragma unroll 8
-      for (int t = 0; t < valid; ++t) {
-        const float x = to_f(vp[(size_t)t * Hkv * Dv + d]);
-        v_s[t * Dv + d] = kQuant ? x * vs : x;
+    __syncthreads();
+
+    // online softmax of each head across the unit: a warp per head, lane =
+    // token; p_s turns from scores into probabilities (times the v scale)
+    float vsc = 1.f;
+    if constexpr (kQuant)
+      if (lane < valid) vsc = vs_s[(t0 + lane) / a.page - b0];
+#pragma unroll 1
+    for (int g = warp; g < G; g += kWarps) {
+      const float x = p_s[g * kPS + lane];
+      const float m_old = m_s[g];
+      const float m_new = fmaxf(m_old, warp_max(x));
+      const float pr = lane < valid ? expf(x - m_new) : 0.f;
+      const float corr = expf(m_old - m_new);
+      const float sum = warp_sum(pr);
+      p_s[g * kPS + lane] = pr * vsc;
+      if (lane == 0) {
+        m_s[g] = m_new;
+        l_s[g] = l_s[g] * corr + sum;
+        c_s[g] = corr;
       }
     }
-    __syncwarp();
-    // scores for every (head, valid token) of the page
-    for (int i = lane; i < G * page; i += 32) {
-      const int g = i / page, t = i - g * page;
-      float s = kNegInf;
-      if (t < valid) {
-        s = 0.f;
-        const float* qg = q_s + g * Dk;
-        const float* kt = k_s + t * kstride;
-        for (int d = 0; d < Dk; ++d) s += qg[d] * kt[d];
-      }
-      p_s[i] = s;
-    }
-    __syncwarp();
-    // online-softmax bookkeeping, one lane per head
-    for (int g = lane; g < G; g += 32) {
-      float* pg = p_s + g * page;
-      float mx = m_s[g];
-      for (int t = 0; t < valid; ++t) mx = fmaxf(mx, pg[t]);
-      const float corr = expf(m_s[g] - mx);
-      float sum = 0.f;
-      for (int t = 0; t < valid; ++t) {
-        const float p = expf(pg[t] - mx);
-        pg[t] = p;
-        sum += p;
-      }
-      l_s[g] = l_s[g] * corr + sum;
-      m_s[g] = mx;
-      c_s[g] = corr;
-    }
-    __syncwarp();
-    // acc = acc * corr + p @ v
-    for (int g = 0; g < G; ++g) {
-      const float* pg = p_s + g * page;
-      const float corr = c_s[g];
-      for (int d = lane; d < Dv; d += 32) {
-        float a = acc_s[g * Dv + d] * corr;
-        for (int t = 0; t < valid; ++t) a += pg[t] * v_s[t * Dv + d];
-        acc_s[g * Dv + d] = a;
+    __syncthreads();
+
+    // acc = acc * corr + p @ v over the group's tokens, four at a time
+    // (p_s holds 0 past `valid`)
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const int i = r + j * P;
+      if (i < npairs) {
+        const int d4 = i / G, g = i - d4 * G;
+        const float corr = c_s[g];
+        const float* pg = p_s + g * kPS;
+        float o0 = acc[j][0] * corr, o1 = acc[j][1] * corr;
+        float o2 = acc[j][2] * corr, o3 = acc[j][3] * corr;
+#pragma unroll 1
+        for (int t = 4 * tg; t < valid; t += 4 * tgc) {
+          const float4 p4 = *reinterpret_cast<const float4*>(pg + t);
+          const float pk[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 x = t + e < valid ? load4<Tkv>(sv + (t + e) * a.rowv, d4)
+                                           : make_float4(0.f, 0.f, 0.f, 0.f);
+            o0 = fmaf(pk[e], x.x, o0);
+            o1 = fmaf(pk[e], x.y, o1);
+            o2 = fmaf(pk[e], x.z, o2);
+            o3 = fmaf(pk[e], x.w, o3);
+          }
+        }
+        acc[j][0] = o0;
+        acc[j][1] = o1;
+        acc[j][2] = o2;
+        acc[j][3] = o3;
       }
     }
-    __syncwarp();
   }
-  __syncthreads();
+  cp_async_wait(0);
 
-  // merge the warps' partial states by their log-sum-exp (a warp that took
-  // no page has m = -1e30, l = 0, acc = 0 and weighs nothing; warp 0 always
-  // took page 0, so the merged max is finite)
-  const size_t acc_off = (size_t)page * kstride + (size_t)page * Dv + (size_t)G * page;
-  for (int i = tid; i < G * (Dv + 1); i += blockDim.x) {
-    // i < G*Dv: output element (g, d); else the lse of head i - G*Dv
-    const int g = i < G * Dv ? i / Dv : i - G * Dv;
-    float mx = kNegInf;
-    for (int w = 0; w < nwarps; ++w)
-      mx = fmaxf(mx, w_s[w * wfl + acc_off + G * Dv + g]);
-    float l = 0.f, a = 0.f;
-    for (int w = 0; w < nwarps; ++w) {
-      const float* acc_w = w_s + w * wfl + acc_off;   // then m [G], l [G]
-      const float e = expf(acc_w[G * Dv + g] - mx);
-      l += acc_w[G * Dv + G + g] * e;
-      if (i < G * Dv) a += acc_w[i] * e;
+  // sum the token groups' accumulators (tgc > 1 only with kPairs == 1)
+  if (tgc > 1) {
+    float4* red = reinterpret_cast<float4*>(ring);
+    __syncthreads();   // the ring is free
+    red[tid] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+    __syncthreads();
+    if (tg == 0) {
+      for (int k = 1; k < tgc; ++k) {
+        const float4 x = red[k * P + r];
+        acc[0][0] += x.x;
+        acc[0][1] += x.y;
+        acc[0][2] += x.z;
+        acc[0][3] += x.w;
+      }
     }
-    if (i < G * Dv)
-      out[o_base + i] = from_f<Tq>(a / fmaxf(l, 1e-30f));
+  }
+
+  // where head g's result goes: the final out/lse, or this split's partial
+  auto row_of = [&](int g) { return (size_t)n * a.Hq + hq0 + g; };
+  for (int g = tid; g < G; g += kThreads) {
+    const float x = m_s[g] + logf(fmaxf(l_s[g], 1e-30f));
+    if (a.S == 1)
+      a.lse[row_of(g)] = x;
     else
-      lse[(size_t)n * Hq + h * G + g] = mx + logf(fmaxf(l, 1e-30f));
+      a.part_lse[row_of(g) * a.S + s] = x;
+  }
+  if (tg != 0) return;
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int i = r + j * P;
+    if (i < npairs) {
+      const int d4 = i / G, g = i - d4 * G;
+      const float inv = 1.f / fmaxf(l_s[g], 1e-30f);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int d = 4 * d4 + c;
+        if (d >= a.Dv) break;
+        if (a.S == 1)
+          static_cast<Tq*>(a.out)[row_of(g) * a.Dv + d] = from_f<Tq>(acc[j][c] * inv);
+        else
+          a.part_out[(row_of(g) * a.S + s) * a.Dv + d] = acc[j][c] * inv;
+      }
+    }
   }
 }
 
-template <typename Tq, typename Tkv>
-int launch(const void* q, const void* k, const void* v, const float* ks,
-           const float* vs, const void* bt, const void* len, void* out,
-           void* lse, int N, int Hq, int Hkv, int Dk, int Dv, int page, int MB,
-           float scale, cudaStream_t stream) {
-  if (sizeof(Tkv) == 1 && (ks == nullptr || vs == nullptr))
+// Merge the S partials of each (row, q head) by their log-sum-exp, as
+// ref.merge_lse: one thread per output element (and one per lse).  An
+// empty split (lse -1e30) weighs nothing and its out is not read; a row
+// whose splits are all empty gets out 0, lse -1e30.
+template <typename Tq>
+__global__ void merge_kernel(const Args a, int N) {
+  const int per_row = a.Hq * (a.Dv + 1);
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)N * per_row) return;
+  const int n = (int)(idx / per_row);
+  const int i = (int)(idx - (long long)n * per_row);
+  const bool is_out = i < a.Hq * a.Dv;
+  const int hq = is_out ? i / a.Dv : i - a.Hq * a.Dv;
+  const int d = is_out ? i - hq * a.Dv : 0;
+  const size_t row = (size_t)n * a.Hq + hq;
+  const float* pl = a.part_lse + row * a.S;
+  float m = kNegInf;
+  for (int s = 0; s < a.S; ++s) m = fmaxf(m, pl[s]);
+  const bool any = m > kNegInf;
+  float l = 0.f, o = 0.f;
+  for (int s = 0; any && s < a.S; ++s) {
+    if (pl[s] <= kNegInf) continue;
+    const float w = expf(pl[s] - m);
+    l += w;
+    if (is_out) o = fmaf(w, a.part_out[(row * a.S + s) * a.Dv + d], o);
+  }
+  if (is_out)
+    static_cast<Tq*>(a.out)[row * a.Dv + d] = from_f<Tq>(any ? o / l : 0.f);
+  else
+    a.lse[row] = any ? m + logf(l) : kNegInf;
+}
+
+int round16(int x) { return (x + 15) & ~15; }
+
+template <typename Tq, typename Tkv, int kPairs>
+int launch(Args a, int N, cudaStream_t stream) {
+  if (sizeof(Tkv) == 1 && (a.k_scale == nullptr || a.v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int G = Hq / Hkv;
-  // the card's opt-in shared memory per block, read once per instantiation
-  static int optin = 0;
+  const int G = a.Hq / a.Hkv;
+  const int Dk4 = (a.Dk + 3) / 4, pairs = G * ((a.Dv + 3) / 4);
+  // the copy size: the largest of 16/8/4 bytes that every base and stride allow
+  const uintptr_t al = reinterpret_cast<uintptr_t>(a.k) | reinterpret_cast<uintptr_t>(a.v) |
+                       (uintptr_t)a.k_sp | (uintptr_t)a.k_st | (uintptr_t)a.k_sh |
+                       (uintptr_t)a.v_sp | (uintptr_t)a.v_st | (uintptr_t)a.v_sh;
+  a.gran = (al % 16 == 0) ? 16 : (al % 8 == 0) ? 8 : (al % 4 == 0) ? 4 : 0;
+  if (a.gran == 0) return (int)cudaErrorInvalidValue;
+  a.page_shift = -1;
+  for (int sh = 0; sh < 31; ++sh)
+    if (a.page == (1 << sh)) a.page_shift = sh;
+  for (a.tpt = 1; a.tpt < 32 && 2 * a.tpt < Dk4;) a.tpt *= 2;
+  // token groups for p @ v: as many as idle threads allow, up to 8
+  a.tgroups = 1;
+  while (kPairs == 1 && a.tgroups < 8 && 2 * a.tgroups * pairs <= kThreads) a.tgroups *= 2;
+  // one 16-byte pad per staged row spreads a warp's row reads over the banks
+  a.rowk = round16(a.Dk * (int)sizeof(Tkv)) + 16;
+  a.rowv = round16(a.Dv * (int)sizeof(Tkv)) + 16;
+  a.head_bytes = round16((int)sizeof(float) * (G * Dk4 * 4 + G * kPS + 3 * G + 3 * a.pps));
+  const size_t stage = (size_t)kUnit * (a.rowk + a.rowv);
+
+  static int optin = 0;   // the card's opt-in shared memory per block
   cudaError_t e;
   if (optin == 0) {
     int dev = 0;
@@ -246,45 +531,44 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (e != cudaSuccess) return (int)e;
   }
-  // as many warps (up to kMaxWarps) as their shared state fits
-  const size_t q_bytes = sizeof(float) * (size_t)G * Dk;
-  const size_t w_bytes = sizeof(float) * warp_floats(G, Dk, Dv, page);
-  int nwarps = kMaxWarps;
-  while (nwarps > 1 && q_bytes + nwarps * w_bytes > (size_t)optin) --nwarps;
-  const size_t smem = q_bytes + nwarps * w_bytes;
+  a.nstages = kMaxStages;
+  while (a.nstages > 2 && a.head_bytes + a.nstages * stage > (size_t)optin) --a.nstages;
+  // the epilogue sums the token groups' accumulators in the ring's space
+  const size_t smem = a.head_bytes + std::max(a.nstages * stage, (size_t)16 * kThreads);
   if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  // this instantiation's shared-memory opt-in (the static is per <Tq, Tkv>)
-  static size_t smem_set = 48 * 1024;
+  static size_t smem_set = 48 * 1024;   // per instantiation
   if (smem > smem_set) {
-    e = cudaFuncSetAttribute(paged_decode_kernel<Tq, Tkv>,
+    e = cudaFuncSetAttribute(paged_split_kernel<Tq, Tkv, kPairs>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
-  dim3 grid(N, Hkv);
-  paged_decode_kernel<Tq, Tkv><<<grid, 32 * nwarps, smem, stream>>>(
-      static_cast<const Tq*>(q), static_cast<const Tkv*>(k),
-      static_cast<const Tkv*>(v), ks, vs, static_cast<const int32_t*>(bt),
-      static_cast<const int32_t*>(len), static_cast<Tq*>(out),
-      static_cast<float*>(lse), Hq, Hkv, Dk, Dv, page, MB, scale);
+  dim3 grid(N, a.Hkv, a.S);
+  paged_split_kernel<Tq, Tkv, kPairs><<<grid, kThreads, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.S == 1) return (int)e;
+  const long long total = (long long)N * a.Hq * (a.Dv + 1);
+  merge_kernel<Tq><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(a, N);
   return (int)cudaGetLastError();
 }
 
+// 1, 4 or kMaxPairs (head, 4-column) accumulators per thread: the fewest
+// that cover G * Dv/4 pairs (fewer registers, more blocks per SM)
+template <typename Tq, typename Tkv>
+int launch_shape(const Args& a, int N, cudaStream_t s) {
+  const int pairs = (a.Hq / a.Hkv) * ((a.Dv + 3) / 4);
+  if (pairs <= kThreads) return launch<Tq, Tkv, 1>(a, N, s);
+  if (pairs <= 4 * kThreads) return launch<Tq, Tkv, 4>(a, N, s);
+  if (pairs <= kMaxPairs * kThreads) return launch<Tq, Tkv, kMaxPairs>(a, N, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename Tq>
-int launch_q(int kv_type, const void* q, const void* k, const void* v,
-             const float* ks, const float* vs, const void* bt, const void* len,
-             void* out, void* lse, int N, int Hq, int Hkv, int Dk, int Dv,
-             int page, int MB, float scale, cudaStream_t s) {
+int launch_q(int kv_type, const Args& a, int N, cudaStream_t s) {
   switch (kv_type) {
-    case 0:
-      return launch<Tq, Tq>(q, k, v, ks, vs, bt, len, out, lse, N, Hq, Hkv, Dk,
-                            Dv, page, MB, scale, s);
-    case 1:
-      return launch<Tq, __nv_fp8_e4m3>(q, k, v, ks, vs, bt, len, out, lse, N,
-                                       Hq, Hkv, Dk, Dv, page, MB, scale, s);
-    case 2:
-      return launch<Tq, int8_t>(q, k, v, ks, vs, bt, len, out, lse, N, Hq, Hkv,
-                                Dk, Dv, page, MB, scale, s);
+    case 0: return launch_shape<Tq, Tq>(a, N, s);
+    case 1: return launch_shape<Tq, __nv_fp8_e4m3>(a, N, s);
+    case 2: return launch_shape<Tq, int8_t>(a, N, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -293,25 +577,46 @@ int launch_q(int kv_type, const void* q, const void* k, const void* v,
 
 // q_type: 0 = float32, 1 = bfloat16 (q and out).  kv_type: 0 = pages in
 // q's type (k_scale/v_scale unused), 1 = fp8 e4m3 codes, 2 = int8 codes
-// (k_scale/v_scale [P] float32 required).  Returns cudaGetLastError() after
-// the launch (0 on success).  The caller checks shapes, types, contiguity.
-extern "C" int paged_decode(const void* q, const void* k_pages,
-                            const void* v_pages, const void* k_scale,
-                            const void* v_scale, const void* block_tables,
-                            const void* lengths, void* out, void* lse, int N,
-                            int Hq, int Hkv, int Dk, int Dv, int page, int MB,
-                            float scale, int q_type, int kv_type, void* stream) {
+// (k_scale/v_scale [P] float32 required).  Page strides are in elements of
+// the page type; the last dim of each pool is contiguous.  pps is the
+// number of pages per split; for S = ceil(MB / pps) > 1, scratch holds
+// N*Hq*S*(Dv + 1) floats (the partials), else it may be null.  Returns
+// cudaGetLastError() after the launches (0 on success).  The caller checks
+// shapes, types and layouts.
+extern "C" int paged_decode(const void* q, const void* k_pages, const void* v_pages,
+                            const void* k_scale, const void* v_scale,
+                            const void* block_tables, const void* lengths, void* out,
+                            void* lse, void* scratch, int N, int Hq, int Hkv, int Dk,
+                            int Dv, int page, int MB, int pps, long long k_sp,
+                            long long k_st, long long k_sh, long long v_sp,
+                            long long v_st, long long v_sh, float scale, int q_type,
+                            int kv_type, void* stream) {
   if (N == 0) return 0;
+  if (pps < 1 || MB < 1 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  const long long es = kv_type == 0 ? (q_type == 0 ? 4 : 2) : 1;
+  Args a{};
+  a.q = q;
+  a.k = static_cast<const char*>(k_pages);
+  a.v = static_cast<const char*>(v_pages);
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.bt = static_cast<const int32_t*>(block_tables);
+  a.len = static_cast<const int32_t*>(lengths);
+  a.out = out;
+  a.lse = static_cast<float*>(lse);
+  a.k_sp = k_sp * es; a.k_st = k_st * es; a.k_sh = k_sh * es;
+  a.v_sp = v_sp * es; a.v_st = v_st * es; a.v_sh = v_sh * es;
+  a.Hq = Hq; a.Hkv = Hkv; a.Dk = Dk; a.Dv = Dv; a.page = page; a.MB = MB;
+  a.pps = pps;
+  a.S = (MB + pps - 1) / pps;
+  a.scale = scale;
+  if (a.S > 1) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    a.part_out = static_cast<float*>(scratch);
+    a.part_lse = a.part_out + (size_t)N * Hq * a.S * Dv;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  if (q_type == 0)
-    return launch_q<float>(kv_type, q, k_pages, v_pages, ks, vs, block_tables,
-                           lengths, out, lse, N, Hq, Hkv, Dk, Dv, page, MB,
-                           scale, s);
-  if (q_type == 1)
-    return launch_q<__nv_bfloat16>(kv_type, q, k_pages, v_pages, ks, vs,
-                                   block_tables, lengths, out, lse, N, Hq, Hkv,
-                                   Dk, Dv, page, MB, scale, s);
+  if (q_type == 0) return launch_q<float>(kv_type, a, N, s);
+  if (q_type == 1) return launch_q<__nv_bfloat16>(kv_type, a, N, s);
   return (int)cudaErrorInvalidValue;
 }

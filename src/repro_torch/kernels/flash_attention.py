@@ -3,17 +3,22 @@ version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::_fwd_kernel``
 (wrappers ``_flash_fwd`` / ``flash_attention``).  The CUDA source is
-``csrc/flash_fwd.cu``: one block per (32-row q tile, q head, batch) loops
-over 32-key kv tiles with an online softmax, stops at the tile's causal
-limit and at ``kv_len``, and masks ragged tails itself — the Pallas
+``csrc/flash_fwd.cu``: one block per (q tile of 128 rows in bf16, 64 in
+f32; q head; batch) loops over 64-key kv tiles with an online softmax, stops at the tile's causal
+limit and at ``kv_len``, and masks ragged tails itself -- the Pallas
 version's multiple-of-128 requirement on Sq/Skv does not exist here, and
 the caller never pads.
 
 What bounds it on an H100: operations.  A causal prefill over S tokens does
 about 2*S*S*(Dk+Dv)/2 flops per head against O(S*(Dk+Dv)) bytes, far above
-the card's flop/byte balance.  This first version does them in float32 on
-CUDA cores (peak 67 TFLOP/s, not the 989 of bf16 tensor cores); wgmma
-tiles fed by TMA are the step that makes it fast.
+the card's flop/byte balance.  So the design keeps the products out of
+shared memory: K/V tiles arrive through a ``cp.async`` ring, and
+the accumulators stay in registers.  bfloat16 inputs run both products on
+the tensor cores (``wgmma`` m64n64k16 from two warpgroups of 64 q rows,
+operands in 128-byte-swizzled shared memory, f32 accumulate); float32
+inputs run on CUDA cores with a 4x4 register micro-tile per thread and
+16-byte shared-memory loads (TF32 would break the 1e-4 tolerance the f32
+main path is held to).
 
 Only the forward is ported: the reference's ``flash_backward`` is scanned
 jnp (no Pallas) and belongs to the training slice (ROADMAP queue 1 item 15).

@@ -2,32 +2,47 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py::_kernel``
 (wrapper ``paged_decode_attention``).  The CUDA source is
-``csrc/paged_decode.cu``: one block per (work row, kv head); its warps
-split the row's pages between them, each with its own online softmax in
-float32 shared memory, and merge their states by log-sum-exp at the end.
+``csrc/paged_decode.cu``.
 
-What bounds it on an H100: the K/V bytes.  Each work row has one query
-token, so the kernel does about 2*G flops per K/V element it reads (G = q
-heads per kv head, 8 on the main path) — two orders of magnitude below the
-flop/byte ratio at which the tensor cores would matter.  The design
-therefore reads every K/V byte once per (row, kv head), stages it in shared
-memory and computes on CUDA cores.  Split-KV across blocks and cp.async/TMA
-staging are the later steps that get it near the bandwidth bound.
+What bounds it on an H100: in principle the K/V bytes.  Each work row has
+one query token, so the kernel does about 2*G flops per K/V element it
+reads (G = q heads per kv head, 8 on the main path), two orders of
+magnitude below the flop/byte ratio at which the tensor cores would
+matter; the products stay on CUDA cores.  At decode sizes (a few MB per
+call) its time is set by latency instead: each block walks its split's
+units one after another, behind barriers, and two launches.  The design:
+
+* split-KV: the grid is (rows, kv heads, splits); ``plan_split`` picks the
+  pages per split from the static shapes alone (no host sync), so that
+  full rows give at least eight blocks per SM.  With more than one split
+  the blocks write float32 partials into one scratch tensor that this
+  wrapper allocates, and a second small kernel merges them by their
+  log-sum-exp (``split_plain`` is the plain mirror of that partition);
+* a shared-memory ring keeps three 32-token units of pages in flight per
+  block, filled by 16-byte ``cp.async`` copies; each staged K value is
+  read once, against 8 heads' q held in registers, and the output
+  accumulators live in registers; scores and probabilities pass between
+  the steps of a unit through shared memory;
+* strided pools: the pages are passed with their own page, token and head
+  strides for k and for v (v may be a view of k, as MLA's latent pool
+  is), never copied.  A pool's last dim must be contiguous and its base
+  and strides multiples of 4 bytes (16 for full-width copies); any other
+  layout raises.
 
 The DCP step calls it ONCE per attention layer for the whole virtual mesh:
 the caller flattens the (instance, tp, frame) pool dims into one page axis
 and offsets each device's block-table entries (``core/dcp.py``).
 
 Quantized pools (fp8 e4m3 or int8 pages with per-page float32 scales,
-``quant.py``) take the Pallas kernel's quantized branch: the kernel
-dequantizes each page as it stages it, so the pool is never dequantized in
-device memory.
+``quant.py``) take the Pallas kernel's quantized branch: the kernel reads
+the codes from its ring and applies each page's two scales to the scores
+and probabilities, so the pool is never dequantized in device memory.
 
 ``plain`` is the plain torch version (``ref.paged_decode_attention``);
 the wrapper runs it for CPU tensors and launches the kernel for CUDA ones.
-``LAUNCHES`` counts kernel launches (not plain-version calls), and
-``LAUNCHES_BY_PAGE`` counts them by page dtype name, so a run can tell
-which variant it went through.
+``LAUNCHES`` counts wrapper calls that launched the kernel (one per call,
+whether or not the merge kernel ran too), and ``LAUNCHES_BY_PAGE`` counts
+them by page dtype name, so a run can tell which variant it went through.
 """
 from __future__ import annotations
 
@@ -37,6 +52,7 @@ import functools
 import torch
 
 from . import build
+from .ref import merge_lse
 from .ref import paged_decode_attention as plain
 
 LAUNCHES = 0
@@ -46,17 +62,77 @@ _Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 # page dtype of a quantized pool -> the C entry's kv_type code
 _QUANT_PAGES = {torch.float8_e4m3fn: 1, torch.int8: 2}
 MAX_HEAD_DIM = 256
+# the kernel's (head, 4-column) accumulators: 16 per thread, 256 threads
+MAX_PAIRS = 16 * 256
+# blocks per SM that ``plan_split`` aims for when every row is full: a
+# split's units run one after another, so shorter splits finish sooner
+BLOCKS_PER_SM = 8
 
 
 @functools.cache
 def _bind():
     lib = build.load("paged_decode")
     fn = lib.paged_decode
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def plan_split(N: int, Hkv: int, MB: int, sms: int) -> int:
+    """Pages per split for a call of N rows, Hkv kv heads and MB block-table
+    columns on a card with ``sms`` SMs.  It takes the fewest splits that
+    give BLOCKS_PER_SM blocks per SM when every row is full (one page per
+    split where MB cannot reach that), then spreads MB evenly over them.
+    Static shapes only, so the decode step never waits on the device."""
+    want = -(-BLOCKS_PER_SM * sms // max(N * Hkv, 1))
+    if want <= 1:
+        return MB
+    if want >= MB:
+        return 1
+    widest = -(-MB // (want - 1)) - 1      # the most pages with >= want splits
+    return -(-MB // -(-MB // widest))
+
+
+def split_plain(q, k_pages, v_pages, block_tables, lengths, pages_per_split,
+                *, scale=None, k_scale=None, v_scale=None):
+    """The plain mirror of the kernel's split-KV partition: each split's
+    (out, lse) over its slice of the block table and of the lengths, then
+    their LSE merge.  Equals ``plain`` up to rounding; split s sees the
+    tokens [s*pps*page, (s+1)*pps*page) of each row."""
+    page, MB = k_pages.shape[1], block_tables.shape[1]
+    outs, lses = [], []
+    for b0 in range(0, MB, pages_per_split):
+        bt = block_tables[:, b0:b0 + pages_per_split]
+        ln = (lengths - b0 * page).clamp(0, bt.shape[1] * page)
+        o, l = plain(q, k_pages, v_pages, bt, ln.to(lengths.dtype),
+                     scale=scale, k_scale=k_scale, v_scale=v_scale)
+        outs.append(o)
+        lses.append(l)
+    return merge_lse(torch.stack(outs), torch.stack(lses))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _page_strides(name: str, pages) -> tuple:
+    """The page, token and head strides of a pool, in elements; raises
+    unless the last dim is contiguous and the base and strides are
+    4-byte multiples (the kernel's narrowest copy)."""
+    es = pages.element_size()
+    # a dim of size 1 is never stepped over: its stride is moot
+    st = tuple(0 if n == 1 else x for n, x in zip(pages.shape, pages.stride()))
+    if (st[3] not in (0, 1) or pages.data_ptr() % 4
+            or any(x * es % 4 for x in st[:3])):
+        raise ValueError(
+            f"paged_decode_attention: {name} needs a contiguous last dim and "
+            f"4-byte aligned base and strides, got strides {st} at "
+            f"{pages.data_ptr():#x} ({pages.dtype})")
+    return st[:3]
 
 
 def _check_scales(k_pages, k_scale, v_scale, device) -> int:
@@ -89,7 +165,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     block_tables [N, MB] int32; lengths [N] int32.  q is float32 or
     bfloat16; the pages are in q's dtype, or fp8 e4m3 / int8 codes with
     ``k_scale``/``v_scale`` [P] float32.  Any head dims up to 256 (no
-    padding).  Returns out [N, Hq, Dv] in q's dtype and lse [N, Hq] float32.
+    padding).  The pools are used in place with their own strides (see the
+    module note).  Returns out [N, Hq, Dv] in q's dtype and lse [N, Hq]
+    float32.
     """
     global LAUNCHES
     if q.device.type == "cpu":
@@ -120,21 +198,30 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     devs = {t.device for t in (q, k_pages, v_pages, block_tables, lengths)}
     if len(devs) != 1:
         raise ValueError(f"paged_decode_attention: tensors on {devs}")
-    q, k_pages, v_pages = q.contiguous(), k_pages.contiguous(), v_pages.contiguous()
-    block_tables, lengths = block_tables.contiguous(), lengths.contiguous()
+    G = Hq // Hkv
+    if G * -(-Dv // 4) > MAX_PAIRS:
+        raise ValueError(f"paged_decode_attention: G*Dv = {G}*{Dv} too wide")
+    k_st, v_st = _page_strides("k_pages", k_pages), _page_strides("v_pages", v_pages)
+    q, block_tables, lengths = q.contiguous(), block_tables.contiguous(), lengths.contiguous()
     ks_ptr = vs_ptr = None
     if kv_type:
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
         ks_ptr, vs_ptr = k_scale.data_ptr(), v_scale.data_ptr()
     scale = scale if scale is not None else Dk ** -0.5
+    MB = block_tables.shape[1]
+    pps = plan_split(N, Hkv, MB, _sm_count(q.device.index or 0))
+    S = -(-MB // pps)
     out = torch.empty((N, Hq, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((N, Hq), dtype=torch.float32, device=q.device)
+    scratch = (torch.empty(N * Hq * S * (Dv + 1), dtype=torch.float32,
+                           device=q.device) if S > 1 and N else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _bind()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  ks_ptr, vs_ptr, block_tables.data_ptr(), lengths.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), N, Hq, Hkv, Dk, Dv, page,
-                 block_tables.shape[1], float(scale), _Q_TYPES[q.dtype],
-                 kv_type, stream)
+                 out.data_ptr(), lse.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
+                 N, Hq, Hkv, Dk, Dv, page, MB, pps, *k_st, *v_st,
+                 float(scale), _Q_TYPES[q.dtype], kv_type, stream)
     build.check(rc, "paged_decode")
     LAUNCHES += 1
     name = str(k_pages.dtype).replace("torch.", "")

@@ -43,6 +43,7 @@ def _close(got, want, dtype):
     (3, 4, 1, 256, 128, 8, 3),       # widest head dim, MQA
     (5, 8, 8, 128, 128, 32, 2),      # MHA, bigger pages
     (2, 32, 1, 256, 256, 64, 2),     # G 32, page 64
+    (4, 8, 2, 34, 18, 16, 3),        # rows of 8-byte (f32) / 4-byte (bf16) multiples
 ])
 def test_paged_decode_kernel_vs_plain(N, Hq, Hkv, Dk, Dv, page, MB, dtype):
     g = torch.Generator(device="cuda").manual_seed(N * 100 + Dk)
@@ -207,3 +208,199 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                        dtype=torch.float16),
                            torch.randn(1, 4, 2, 16, device="cuda",
                                        dtype=torch.float16))
+
+
+# --------------------------------------------------------------------------- #
+# the split-KV paged kernel and the tiled flash kernel: their edges
+# --------------------------------------------------------------------------- #
+def _paged_case(N, Hq, Hkv, Dk, Dv, page, MB, dtype, seed, P=64):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(N, Hq, Dk, device="cuda", generator=g).to(dtype)
+    k = torch.randn(P, page, Hkv, Dk, device="cuda", generator=g).to(dtype)
+    v = torch.randn(P, page, Hkv, Dv, device="cuda", generator=g).to(dtype)
+    bt = torch.randint(0, P, (N, MB), device="cuda", generator=g,
+                       dtype=torch.int32)
+    return q, k, v, bt, g
+
+
+def _pps(N, Hkv, MB):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pa.plan_split(N, Hkv, MB, sms)
+
+
+def _allocations():
+    return torch.cuda.memory_stats()["allocation.all.allocated"]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "fp8", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_split_edges(dtype, kv_dtype):
+    """The main path's geometry with rows that end exactly on a split
+    boundary, one split past it, span every split, and zero-length rows
+    between full ones; float pages and fp8/int8 codes through the split
+    path.  The call allocates out, lse and one scratch tensor, no more."""
+    N, Hq, Hkv, D, page, MB = 64, 16, 2, 64, 16, 44
+    pps = _pps(N, Hkv, MB)
+    assert -(-MB // pps) > 1          # the split path, with its merge
+    q, k, v, bt, g = _paged_case(N, Hq, Hkv, D, D, page, MB, dtype, seed=7)
+    kw = {}
+    if kv_dtype:
+        k, ks = _quantized_pages(64, page, Hkv, D, kv_dtype, g)
+        v, vs = _quantized_pages(64, page, Hkv, D, kv_dtype, g)
+        kw = {"k_scale": ks, "v_scale": vs}
+    ln = torch.randint(1, MB * page + 1, (N,), device="cuda", generator=g,
+                       dtype=torch.int32)
+    edge = [pps * page, 2 * pps * page, pps * page + 1, pps * page - 1,
+            MB * page, 0, MB * page, 0, 0, MB * page, 1, page]
+    ln[:len(edge)] = torch.tensor(edge, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    a0 = _allocations()
+    o, l = pa.paged_decode_attention(q, k, v, bt, ln, **kw)
+    assert _allocations() - a0 == 3
+    o2, l2 = ref.paged_decode_attention(q, k, v, bt, ln, **kw)
+    torch.cuda.synchronize()
+    _close(o, o2, dtype)
+    torch.testing.assert_close(l, l2, atol=1e-4, rtol=1e-4)
+    assert (o[ln == 0] == 0).all() and (l[ln == 0] == -1e30).all()
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "fp8", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_one_page_rows(dtype, kv_dtype):
+    """MB = 1: one split, so the first kernel writes the result itself and
+    no scratch is allocated."""
+    N, Hq, Hkv, D, page = 5, 8, 2, 64, 16
+    q, k, v, bt, g = _paged_case(N, Hq, Hkv, D, D, page, 1, dtype, seed=3)
+    kw = {}
+    if kv_dtype:
+        k, ks = _quantized_pages(64, page, Hkv, D, kv_dtype, g)
+        v, vs = _quantized_pages(64, page, Hkv, D, kv_dtype, g)
+        kw = {"k_scale": ks, "v_scale": vs}
+    ln = torch.tensor([16, 0, 1, 7, 16], dtype=torch.int32, device="cuda")
+    assert _pps(N, Hkv, 1) == 1
+    torch.cuda.synchronize()
+    a0 = _allocations()
+    o, l = pa.paged_decode_attention(q, k, v, bt, ln, **kw)
+    assert _allocations() - a0 == 2
+    o2, l2 = ref.paged_decode_attention(q, k, v, bt, ln, **kw)
+    torch.cuda.synchronize()
+    _close(o, o2, dtype)
+    torch.testing.assert_close(l, l2, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "fp8", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_v_as_strided_view_of_k(dtype, kv_dtype):
+    """MLA's layout: v is k[..., :Dv] of one latent pool (Dk 40, Dv 32,
+    one kv head).  The wrapper passes both strides and copies nothing: the
+    call allocates out, lse and the split scratch only."""
+    N, Hq, page, MB, Dk, Dv = 6, 4, 16, 5, 40, 32
+    q, k, _, bt, g = _paged_case(N, Hq, 1, Dk, Dv, page, MB, dtype, seed=11)
+    kw = {}
+    if kv_dtype:
+        k, ks = _quantized_pages(64, page, 1, Dk, kv_dtype, g)
+        kw = {"k_scale": ks, "v_scale": ks}
+    v = k[..., :Dv]
+    assert not v.is_contiguous()
+    ln = torch.tensor([MB * page, 0, 17, 33, 1, MB * page], dtype=torch.int32,
+                      device="cuda")
+    S = -(-MB // _pps(N, 1, MB))
+    torch.cuda.synchronize()
+    a0 = _allocations()
+    o, l = pa.paged_decode_attention(q, k, v, bt, ln, **kw)
+    assert _allocations() - a0 == 2 + (S > 1)
+    o2, l2 = ref.paged_decode_attention(q, k, v.contiguous(), bt, ln, **kw)
+    torch.cuda.synchronize()
+    _close(o, o2, dtype)
+    torch.testing.assert_close(l, l2, atol=1e-4, rtol=1e-4)
+
+
+def test_paged_rejects_layouts_it_cannot_copy():
+    """A pool whose last dim is strided, or whose strides are not 4-byte
+    multiples, raises instead of being copied."""
+    q = torch.randn(2, 8, 16, device="cuda")
+    kp = torch.randn(4, 16, 2, 32, device="cuda")
+    bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+    ln = torch.ones(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        pa.paged_decode_attention(q, kp[..., ::2], kp[..., ::2], bt, ln)
+    qb = q.to(torch.bfloat16)
+    kb = torch.randn(4, 16, 2, 17, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        pa.paged_decode_attention(qb, kb[..., :16], kb[..., :16], bt, ln)
+
+
+def _flash_case(B, Sq, Skv, Hq, Hkv, Dk, Dv, dtype, kv_len, q_offset, causal,
+                seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, Sq, Hq, Dk, device="cuda", generator=g).to(dtype)
+    k = torch.randn(B, Skv, Hkv, Dk, device="cuda", generator=g).to(dtype)
+    v = torch.randn(B, Skv, Hkv, Dv, device="cuda", generator=g).to(dtype)
+    kl = (None if kv_len is None
+          else torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+    o, l = fa.flash_attention(q, k, v, causal=causal, kv_len=kl,
+                              q_offset=q_offset)
+    o2, l2 = ref.flash_attention(q, k, v, causal=causal, kv_len=kl,
+                                 q_offset=q_offset)
+    torch.cuda.synchronize()
+    _close(o, o2, dtype)
+    torch.testing.assert_close(l, l2, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Sq,Skv,q_offset", [
+    (63, 63, 0), (65, 65, 0), (127, 127, 0), (129, 129, 0),
+    (65, 129, 64), (1, 129, 128),
+])
+def test_flash_one_off_the_tiles(Sq, Skv, q_offset, dtype):
+    """Sq/Skv one off the 64-row and 64-key tiles, causal."""
+    _flash_case(1, Sq, Skv, 8, 2, 64, 64, dtype, None, q_offset, True,
+                seed=Sq + Skv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kv_len_inside_one_tile(causal, dtype):
+    """kv_len shorter than one kv tile, ragged across the batch."""
+    _flash_case(2, 150, 150, 4, 2, 64, 64, dtype, [17, 5], 0, causal,
+                seed=17)
+
+
+@pytest.mark.parametrize("D", [16, 24, 40, 96, 256])
+def test_flash_bf16_tensor_core_head_dims(D):
+    """The tensor-core path at head dims that pad to its instantiations,
+    B = 2 with ragged kv_len."""
+    _flash_case(2, 77, 77, 4, 2, D, D, torch.bfloat16, [77, 50], 0, True,
+                seed=D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dk,Dv", [(64, 32), (16, 128), (40, 24), (128, 200),
+                                   (20, 12), (18, 10)])   # narrow copies
+def test_flash_dk_neq_dv(Dk, Dv, dtype):
+    _flash_case(2, 70, 90, 4, 1, Dk, Dv, dtype, [90, 33], 20, True,
+                seed=Dk * Dv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_row_without_keys(dtype):
+    """kv_len == 0 gives out = 0 and lse = -1e30 (the Pallas kernel's
+    contract); the other batch entry matches the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(2, 40, 4, 64, device="cuda", generator=g).to(dtype)
+    k = torch.randn(2, 40, 2, 64, device="cuda", generator=g).to(dtype)
+    v = torch.randn(2, 40, 2, 64, device="cuda", generator=g).to(dtype)
+    kl = torch.tensor([0, 40], dtype=torch.int32, device="cuda")
+    o, l = fa.flash_attention(q, k, v, kv_len=kl)
+    o2, l2 = ref.flash_attention(q[1:], k[1:], v[1:])
+    torch.cuda.synchronize()
+    assert (o[0] == 0).all() and (l[0] == -1e30).all()
+    _close(o[1:], o2, dtype)
+    torch.testing.assert_close(l[1:], l2, atol=1e-4, rtol=1e-4)
