@@ -41,8 +41,29 @@ Phases, each printing one JSON line:
   6. escalate — fp8 pools, one 40-token prompt decoding 24 tokens across a
                CP bucket edge at 48 on a (2, 2) mesh: the live re-shard moves
                quantized KV with its scales; the same contract holds.
-  7. summary — ``{"kernels": [...]}``, then the last line
+  7. dense   — the main path's traffic with the dense all-gather backend
+               (``backend="dense"``) beside a routed twin run, both keeping
+               their step logits: the tokens must be equal, the logits
+               within 1e-4.  The TinyLlama weights are then freed.
+  8. mla     — full-width MiniCPM3-4B (62 layers, random float32 weights,
+               seed 0) through the engine: the main path's traffic at
+               (I=4, TP=2) pipelined and not, at (2, 4) pipelined; fp8 and
+               int8 latent pools at (4, 2) under the tolerance contract; the
+               reference's ``mla`` escalation cell at (2, 2) with float32
+               and fp8 pools.  Float32 transcripts are checked
+               teacher-forced, as in phase 3.  Then the profile of phase 4
+               at (4, 2), and the paged kernel re-checked and re-timed on
+               the largest call the float32 and fp8 runs made (f32 and
+               bf16 q), its bound counting the latent row once (v is the
+               view k[..., :256] of the same bytes).
+  9. summary — ``{"kernels": [...]}``, then the last line
                ``{"ok": true, "device": {...}}``.
+
+The kernel phase also holds the paged kernel at MLA's latent shape (G 40
+q heads over one latent head of Dk 288, Dv 256 as a view; f32/bf16 q,
+f32/bf16/fp8/int8 pages; edge rows with zero-length rows, MB = 1 and a
+split boundary) and flash at MLA's prefill shape (40 heads, Dk 96, Dv 64,
+S 2000).
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
 without the repository's ``src/`` beside it, the script fails.
@@ -83,6 +104,11 @@ DEV = torch.device("cuda")
 
 PROMPT_LENS = (50, 300, 120, 40, 200, 2000)
 NEW_TOKENS = 16
+# MiniCPM3-4B's decode latent: kv_lora 256 + rope 32, v the first 256 dims;
+# 40 q heads on the one latent head; prefill q/k 96 (nope 64 + rope 32), v 64
+MLA_G, MLA_DK, MLA_DV = 40, 288, 256
+MLA_SCALE = (64 + 32) ** -0.5
+DENSE_LOGIT_TOL = 1e-4
 # the reference's quantized-serving contract (tests/integration/engine_quant.py)
 LOGIT_TOL = {"fp8": 1.5, "int8": 0.5}
 CAPTURE_STEPS = 4     # steps whose paged calls are inspected (they sync)
@@ -182,25 +208,63 @@ def paged_inputs(dtype, gen):
 
 
 def quantize_pages(args, kv_dtype):
-    """The float pages of a paged call as codes with per-page scales."""
+    """The float pages of a paged call as codes with per-page scales.  A
+    latent pool (v a view of k) stays one pool with one scale per page."""
     q, k, v, bt, lengths = args[:5]
     qk = []
-    for x in (k, v):
+    for x in ((k,) if shares_storage(k, v) else (k, v)):
         sc = quant.amax_scale(x.float().reshape(x.shape[0], -1), kv_dtype)
         qk += [quant.quantize(x, sc[:, None, None, None], kv_dtype), sc]
+    if len(qk) == 2:
+        return (q, qk[0], qk[0][..., :v.shape[-1]], bt, lengths, qk[1], qk[1])
     return (q, qk[0], qk[2], bt, lengths, qk[1], qk[3])
+
+
+def as_bf16_call(args):
+    """A paged call's inputs with bfloat16 q, and bfloat16 pages where they
+    are float (keeping v a view of k where it was one)."""
+    q, k, v, bt, lengths, *scales = args
+    if not k.is_floating_point() or k.element_size() == 1:
+        return (q.to(torch.bfloat16), k, v, bt, lengths, *scales)
+    kb = k.to(torch.bfloat16)
+    vb = kb[..., :v.shape[-1]] if shares_storage(k, v) else v.to(torch.bfloat16)
+    return (q.to(torch.bfloat16), kb, vb, bt, lengths)
+
+
+def mla_paged_inputs(dtype, gen):
+    """MLA's paged call at MiniCPM3-4B's width on the (I=4, TP=2) mesh: one
+    latent pool of I*tp*F' = 8 * 129 pages of 16 tokens x 288, v its first
+    256 dims as a view, G = 40 q heads on the one latent head; a row's
+    stripe holds up to ~350 tokens (a 2000-token prompt over three
+    instances, striped over two devices), and every fourth row is empty."""
+    rows, MB, P = 64, 24, 8 * 129
+    q = torch.randn(rows, MLA_G, MLA_DK, device=DEV, generator=gen).to(dtype)
+    k = torch.randn(P, 16, 1, MLA_DK, device=DEV, generator=gen).to(dtype)
+    lengths = torch.randint(1, 351, (rows,), device=DEV, generator=gen,
+                            dtype=torch.int32)
+    lengths[::4] = 0
+    bt = torch.randint(0, P, (rows, MB), device=DEV, generator=gen,
+                       dtype=torch.int32)
+    return q, k, k[..., :MLA_DV], bt, lengths
+
+
+def shares_storage(a, b) -> bool:
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
 
 
 def paged_cost(q, k, v, bt, lengths, k_scale=None, v_scale=None):
     """Bytes the call must move (only the valid tokens' K/V, and for a
-    quantized pool the two scales of every page a row reads) and its
-    flops."""
+    quantized pool the scales of every page a row reads) and its flops.
+    Where v is a view of k (MLA's latent) each token's row, and each
+    page's one scale, counts once."""
     Hkv, Dk, Dv, page = k.shape[2], k.shape[3], v.shape[3], k.shape[1]
     Hq = q.shape[1]
     toks = int(lengths.sum())
-    kv_bytes = toks * Hkv * (Dk + Dv) * k.element_size()
+    latent = shares_storage(k, v)
+    kv_bytes = toks * Hkv * (Dk if latent else Dk + Dv) * k.element_size()
     if k_scale is not None:
-        kv_bytes += 2 * 4 * int(((lengths + page - 1) // page).sum())
+        kv_bytes += ((1 if latent else 2) * 4
+                     * int(((lengths + page - 1) // page).sum()))
     out_bytes = q.shape[0] * Hq * (Dv * q.element_size() + 4)
     by = nbytes(q, bt, lengths) + kv_bytes + out_bytes
     return by, 2.0 * toks * Hq * (Dk + Dv)
@@ -215,20 +279,23 @@ def flash_cost(q, k, v, kv_len, q_offset):
     return by, 2.0 * B * Hq * pairs * (Dk + Dv)
 
 
-def paged_variant(k) -> str:
-    """The kernel's name in the summary: its page type when quantized."""
-    return {torch.float8_e4m3fn: "paged_decode_fp8",
-            torch.int8: "paged_decode_int8"}.get(k.dtype, "paged_decode")
+def paged_variant(k, v=None) -> str:
+    """The kernel's name in the summary: ``_mla`` where v is a view of k
+    (the latent pool), then its page type when quantized."""
+    mla = "_mla" if v is not None and shares_storage(k, v) else ""
+    return "paged_decode" + mla + {torch.float8_e4m3fn: "_fp8",
+                                   torch.int8: "_int8"}.get(k.dtype, "")
 
 
-def paged_row(args, dtype, label: str) -> dict:
+def paged_row(args, dtype, label: str, scale=None) -> dict:
     """Hold the paged kernel against its plain version on ``args`` (q, k, v,
     block tables, lengths[, k_scale, v_scale]) and time both; returns the
     phase's JSON row.  ``dtype`` is q's type, which sets the tolerance."""
     dn = str(dtype).replace("torch.", "")
     q, k, v, bt, lengths = args[:5]
     kw = {} if len(args) == 5 else {"k_scale": args[5], "v_scale": args[6]}
-    name = paged_variant(k)
+    kw["scale"] = scale
+    name = paged_variant(k, v)
     o, l = pa.paged_decode_attention(q, k, v, bt, lengths, **kw)
     o2, l2 = ref.paged_decode_attention(q, k, v, bt, lengths, **kw)
     torch.cuda.synchronize()
@@ -242,7 +309,7 @@ def paged_row(args, dtype, label: str) -> dict:
     return {"phase": "kernel", "name": name, "dtype": dn,
             "page_dtype": str(k.dtype).replace("torch.", ""), "inputs": label,
             "shape": {"rows": q.shape[0], "Hq": q.shape[1], "Hkv": k.shape[2],
-                      "hd": q.shape[2], "page": k.shape[1],
+                      "hd": q.shape[2], "dv": v.shape[3], "page": k.shape[1],
                       "pages": k.shape[0], "max_len": int(lengths.max()),
                       "kv_tokens": int(lengths.sum()),
                       "zero_rows": int((lengths == 0).sum())},
@@ -251,17 +318,60 @@ def paged_row(args, dtype, label: str) -> dict:
             "share_of_bound": bms / ms, "library_ms": None}
 
 
+def flash_row(name: str, q, k, v, kl, qo, timed: bool) -> dict:
+    """Hold flash against its plain version on (q, k, v, kv_len, q_offset);
+    with ``timed`` also time kernel, plain version and SDPA (where SDPA
+    takes the shape), beside the bound."""
+    dtype = q.dtype
+    dn = str(dtype).replace("torch.", "")
+    B, Sq, Hq, Dk = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    o, l = fa.flash_attention(q, k, v, kv_len=kl, q_offset=qo)
+    o2, l2 = ref.flash_attention(q, k, v, kv_len=kl, q_offset=qo)
+    torch.cuda.synchronize()
+    err = max(check_close(f"{name} {dn} Sq={Sq} out", o, o2, dtype),
+              check_close(f"{name} {dn} Sq={Sq} lse", l, l2, dtype))
+    row = {"phase": "kernel", "name": name, "dtype": dn,
+           "shape": {"B": B, "Sq": Sq, "Skv": Skv, "Hq": Hq, "Hkv": Hkv,
+                     "hd": Dk, "dv": Dv,
+                     "kv_len": None if kl is None else kl.tolist(),
+                     "q_offset": qo},
+           "max_abs_err": err, "tol": TOL[dtype]}
+    if timed:
+        row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v))
+        row["plain_ms"] = time_ms(lambda: ref.flash_attention(q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv)
+        try:
+            sdpa()
+            torch.cuda.synchronize()
+        except RuntimeError as exc:       # the yardstick, not the port
+            row["library_ms"], row["library_error"] = None, str(exc)[:200]
+        else:
+            row["library_ms"] = time_ms(sdpa)
+        b, f = flash_cost(q, k, v, kl, qo)
+        row["bound_ms"], row["bound_by"] = bound_ms(b, f, dtype)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    emit(row)
+    return row
+
+
 def run_kernel_phase(gen) -> dict:
     summary = {}
+
+    def add(row):
+        emit(row)
+        summary.setdefault(row["name"], []).append(row)
+
     for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).replace("torch.", "")
         # --- paged decode: pages in q's type, then fp8 and int8 codes ---
         args = paged_inputs(dtype, gen)
         for a in (args, quantize_pages(args, "fp8"),
                   quantize_pages(args, "int8")):
-            row = paged_row(a, dtype, "synthetic")
-            emit(row)
-            summary.setdefault(row["name"], []).append(row)
+            add(paged_row(a, dtype, "synthetic"))
         # --- flash forward ---
         for Sq, kvl, qo in ((50, None, 0), (300, None, 0), (2000, None, 0),
                             (300, 200, 0), (256, None, 100)):
@@ -271,27 +381,19 @@ def run_kernel_phase(gen) -> dict:
             v = torch.randn(1, Skv, 4, 64, device=DEV, generator=gen).to(dtype)
             kl = (None if kvl is None else
                   torch.tensor([kvl], dtype=torch.int32, device=DEV))
-            o, l = fa.flash_attention(q, k, v, kv_len=kl, q_offset=qo)
-            o2, l2 = ref.flash_attention(q, k, v, kv_len=kl, q_offset=qo)
-            torch.cuda.synchronize()
-            err = max(check_close(f"flash_fwd {dn} Sq={Sq} out", o, o2, dtype),
-                      check_close(f"flash_fwd {dn} Sq={Sq} lse", l, l2, dtype))
-            row = {"phase": "kernel", "name": "flash_fwd", "dtype": dn,
-                   "shape": {"B": 1, "Sq": Sq, "Skv": Skv, "Hq": 32, "Hkv": 4,
-                             "hd": 64, "kv_len": kvl, "q_offset": qo},
-                   "max_abs_err": err, "tol": TOL[dtype]}
-            if (Sq, kvl, qo) == (2000, None, 0):
-                row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v))
-                row["plain_ms"] = time_ms(lambda: ref.flash_attention(q, k, v))
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                row["library_ms"] = time_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True))
-                b, f = flash_cost(q, k, v, kl, qo)
-                row["bound_ms"], row["bound_by"] = bound_ms(b, f, dtype)
-                row["share_of_bound"] = row["bound_ms"] / row["ms"]
-            emit(row)
-            summary.setdefault("flash_fwd", []).append(row)
+            summary.setdefault("flash_fwd", []).append(
+                flash_row("flash_fwd", q, k, v, kl, qo,
+                          timed=(Sq, kvl, qo) == (2000, None, 0)))
+        # --- MLA: the latent paged call, and the materialised prefill ---
+        args = mla_paged_inputs(dtype, gen)
+        for a in (args, quantize_pages(args, "fp8"),
+                  quantize_pages(args, "int8")):
+            add(paged_row(a, dtype, "synthetic", scale=MLA_SCALE))
+        q = torch.randn(1, 2000, 40, 96, device=DEV, generator=gen).to(dtype)
+        k = torch.randn(1, 2000, 40, 96, device=DEV, generator=gen).to(dtype)
+        v = torch.randn(1, 2000, 40, 64, device=DEV, generator=gen).to(dtype)
+        summary.setdefault("flash_fwd_mla", []).append(
+            flash_row("flash_fwd_mla", q, k, v, None, 0, timed=True))
     run_edge_checks(gen)
     return summary
 
@@ -325,7 +427,8 @@ def run_edge_checks(gen) -> None:
     widths (paged rows of 2 kv heads x G 8, hd 64; flash 32 q / 4 kv heads
     of 64): paged rows ending on a split boundary, spanning every split,
     zero rows between full ones, MB = 1, fp8/int8 through the split path,
-    and v as a strided view of k at MLA's head dims (40 / 32); flash at
+    and v as a strided view of k at reduced MLA's head dims (40 / 32) and
+    at MiniCPM3-4B's (288 / 256, G 40, f32/bf16/fp8 pages); flash at
     Sq/Skv one off the 64-row tiles, kv_len inside one tile, bf16 head dims
     16-256, and Dk != Dv."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -353,6 +456,27 @@ def run_edge_checks(gen) -> None:
                  pa.paged_decode_attention(ql, lat, lat[..., :32], bt, lengths),
                  ref.paged_decode_attention(ql, lat, lat[..., :32].contiguous(),
                                             bt, lengths))
+        # ... and at MiniCPM3-4B's width: Dk 288, v = k[..., :256], G 40;
+        # rows on and one past a split boundary, empty rows, MB = 1
+        q, k, v, bt, lengths = mla_paged_inputs(dtype, gen)
+        N, MB = q.shape[0], bt.shape[1]
+        pps = pa.plan_split(N, 1, MB, sms)
+        edge = [0, pps * page, pps * page + 1, 2 * pps * page, MB * page, 0,
+                1, page]
+        lengths[:len(edge)] = torch.tensor(edge, dtype=torch.int32, device=DEV)
+        for kv in (None, "fp8"):
+            for case, a in ((f"MLA Dk 288 split edges (pps {pps})",
+                             (q, k, v, bt, lengths)),
+                            ("MLA Dk 288 MB = 1",
+                             (q, k, v, bt[:, :1], lengths.clamp(max=page)))):
+                a = a if kv is None else quantize_pages(a, kv)
+                kw = {"scale": MLA_SCALE}
+                if kv is not None:
+                    kw.update(k_scale=a[5], v_scale=a[6])
+                edge_row(paged_variant(a[1], a[2]), case, dtype,
+                         pa.paged_decode_attention(*a[:5], **kw),
+                         ref.paged_decode_attention(
+                             *a[:2], a[2].contiguous(), *a[3:5], **kw))
         for n in (63, 65, 127, 129):
             flash_edge(gen, dtype, 1, n, n, 64, 64)
         for causal in (True, False):
@@ -368,7 +492,8 @@ def run_edge_checks(gen) -> None:
 # --------------------------------------------------------------------------- #
 # phase 3: engine
 # --------------------------------------------------------------------------- #
-def teacher_forced_check(cfg, params, prompts, results, tag) -> int:
+def teacher_forced_check(cfg, params, prompts, results, tag,
+                         new_tokens: int = NEW_TOKENS) -> int:
     """Every transcript must equal the port's greedy forward: one forward
     per request over prompt + transcript, argmax at every generated
     position.  A divergence is tolerated only where the reference's top-2
@@ -376,7 +501,7 @@ def teacher_forced_check(cfg, params, prompts, results, tag) -> int:
     ties = 0
     for rid, prompt in enumerate(prompts):
         toks = results[rid].tokens
-        if len(toks) != NEW_TOKENS:
+        if len(toks) != new_tokens:
             fail(f"{tag}: request {rid} emitted {len(toks)} tokens")
         seq = torch.as_tensor(np.concatenate([prompt, toks[:-1]]),
                               device=DEV)[None]
@@ -429,7 +554,7 @@ def quant_contract(cfg, params, prompts, eng, kv_dtype: str, tag: str,
         steps = eng.step_logits.get(rid, [])
         if len(steps) != new_tokens - 1:
             fail(f"{tag}: request {rid} kept {len(steps)} step logits")
-        got = torch.as_tensor(np.stack(steps), device=DEV)[:, :cfg.vocab_size]
+        got = torch.as_tensor(np.stack(steps), device=DEV)     # [new-1, Vp]
         ref_s = ref_lg[1:]
         if not torch.isfinite(got).all():
             fail(f"{tag}: non-finite engine logits for request {rid}")
@@ -457,21 +582,28 @@ def quant_contract(cfg, params, prompts, eng, kv_dtype: str, tag: str,
 
 class LargestPagedCall:
     """While active, wraps ``pa.paged_decode_attention`` and keeps a frozen
-    copy of the inputs of the call with the most kv tokens.  Each call it
-    sees syncs the device (the token count is read on the host), so it
-    stays active for a few steps only."""
+    copy of the inputs (and the scale) of the call with the most kv tokens.
+    A v that is a view of k (MLA's latent) stays a view of the copied k,
+    and shared scales stay shared.  Each call it sees syncs the device (the
+    token count is read on the host), so it stays active for a few steps
+    only."""
 
     def __init__(self):
-        self.tokens, self.args = -1, None
+        self.tokens, self.args, self.scale = -1, None, None
         self._launch = pa.paged_decode_attention
 
     def _record(self, q, k, v, bt, lengths, *, scale=None, k_scale=None,
                 v_scale=None):
         tokens = int(lengths.sum())
         if tokens > self.tokens:
-            ts = (q, k, v, bt, lengths) + (() if k_scale is None
-                                           else (k_scale, v_scale))
-            self.tokens, self.args = tokens, tuple(t.clone() for t in ts)
+            kc = k.clone()
+            vc = (kc[..., :v.shape[-1]] if shares_storage(k, v)
+                  else v.clone())
+            sc = () if k_scale is None else (k_scale.clone(),)
+            if sc:
+                sc += (sc[0] if v_scale is k_scale else v_scale.clone(),)
+            self.tokens, self.scale = tokens, scale
+            self.args = (q.clone(), kc, vc, bt.clone(), lengths.clone()) + sc
         return self._launch(q, k, v, bt, lengths, scale=scale,
                             k_scale=k_scale, v_scale=v_scale)
 
@@ -499,20 +631,24 @@ def make_engine(cfg, params, prompts, pipeline: bool, *,
 
 def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
                tag: str | None = None, new_tokens: int = NEW_TOKENS,
-               escalate: bool = False, **kw) -> dict:
+               escalate: bool = False, keep_logits: bool = False,
+               **kw) -> dict:
     """One engine run, its launch counts zeroed right before and read right
     after.  Float32 pools: transcripts equal the greedy forward.  Quantized
     pools: the tolerance contract, every paged launch of the quantized
     variant, the kv dtype in the bucket key, a clean frame audit and the
-    live re-shard exercised (relaxations, or escalations when
-    ``escalate``); the largest paged call of the first steps is kept in
-    ``row["captured"]``."""
+    live re-shard exercised (relaxations); with ``escalate`` (any pools) an
+    escalation re-shard must have run.  The largest paged call of a
+    quantized run's first steps is kept in ``row["captured"]``; with
+    ``keep_logits`` the step logits by request in ``row["step_logits"]``
+    and the transcripts in ``row["tokens"]``."""
     quantized = quant.is_quantized(kv_dtype)
     tag = tag or ("pipelined" if pipeline else "non-pipelined")
     torch.cuda.reset_peak_memory_stats()
     if quantized:
-        kw.update(kv_dtype=kv_dtype, keep_logits=True,
-                  audit_donation_every_step=True)
+        kw.update(kv_dtype=kv_dtype, audit_donation_every_step=True)
+    if quantized or keep_logits:
+        kw["keep_logits"] = True
     eng = make_engine(cfg, params, prompts, pipeline, new_tokens=new_tokens,
                       **kw)
     torch.cuda.synchronize()
@@ -520,7 +656,7 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
     pa.LAUNCHES_BY_PAGE.clear()
     fa.LAUNCHES = 0
     cap = LargestPagedCall() if quantized else None
-    step_ms, prefill_us, steady, host_us = [], 0.0, [], {}
+    step_ms, prefill_us, steady, host_us, rounds = [], 0.0, [], {}, 0
     t_run = time.perf_counter()
     with torch.no_grad():
         while eng.pending and len(step_ms) < 200:
@@ -533,6 +669,7 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
                 eng.step()
             dt = (time.perf_counter() - t0) * 1e3
             step_ms.append(dt)
+            rounds = max(rounds, eng.last_rounds_used)
             if "prefill_us" in eng.timings:
                 prefill_us += eng.timings["prefill_us"]
             elif "dispatch_us" in eng.timings and not inspect:
@@ -549,36 +686,40 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
     if launches != want:
         fail(f"{tag}: launches {launches}, expected {want} "
              f"(steps x layers, prompts x layers)")
-    page_name = str(eng.state["k_pool"].dtype).replace("torch.", "")
+    pool = eng.state["kv_pool" if cfg.is_mla else "k_pool"]
+    page_name = str(pool.dtype).replace("torch.", "")
     if by_page != {page_name: want["paged_decode"]}:
         fail(f"{tag}: paged launches by page type {by_page}, expected all "
              f"{want['paged_decode']} of {page_name}")
     if eng.aot.stats.donation_copies:
         fail(f"{tag}: pools moved during a step: {eng.aot.stats.as_dict()}")
     hp = eng.hot_path_stats
-    row = {"phase": "engine", "run": tag, "kv_dtype": kv_dtype,
+    row = {"phase": "engine", "model": cfg.name, "run": tag,
+           "kv_dtype": kv_dtype, "backend": eng._dims0.backend,
+           "mesh": [eng.cluster.num_instances, eng.tp],
            "requests": len(prompts),
            "prompt_lens": [len(p) for p in prompts], "new_tokens": new_tokens,
-           "steps": steps, "launches": launches,
+           "steps": steps, "max_rounds_used": rounds, "launches": launches,
            "launches_by_page": by_page}
+    if escalate:
+        fin = eng.finished[0]
+        if (hp["escalations"] < 1 or hp["reshard_tokens"] <= 0
+                or len(fin.kv_binding) != 2):
+            fail(f"{tag}: no escalation re-shard: {hp}, binding "
+                 f"{fin.kv_binding}")
     if quantized:
         row.update(quant_contract(cfg, params, prompts, eng, kv_dtype, tag,
                                   new_tokens))
         if eng.last_bucket[-1] != kv_dtype:
             fail(f"{tag}: bucket key {eng.last_bucket} lacks the kv dtype")
         eng.cluster.page_table.frame_audit()
-        if escalate:
-            fin = eng.finished[0]
-            if (hp["escalations"] < 1 or hp["reshard_tokens"] <= 0
-                    or len(fin.kv_binding) != 2):
-                fail(f"{tag}: no escalation re-shard: {hp}, binding "
-                     f"{fin.kv_binding}")
-        elif hp["relaxations"] <= 0:
+        if not escalate and hp["relaxations"] <= 0:
             fail(f"{tag}: the quantized re-shard never ran: {hp}")
         row["captured_kv_tokens"] = cap.tokens
     else:
         row["ties_tolerated"] = teacher_forced_check(cfg, params, prompts,
-                                                     eng.results, tag)
+                                                     eng.results, tag,
+                                                     new_tokens)
     decode_tokens = sum(len(r.tokens) - 1 for r in eng.results.values())
     decode_s = sum(step_ms) / 1e3 - prefill_us / 1e6
     row.update({
@@ -599,20 +740,24 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
     emit(row)
     if cap is not None:
-        row["captured"] = cap.args
+        row["captured"] = (cap.args, cap.scale)
+    if keep_logits:
+        row["step_logits"] = dict(eng.step_logits)
+        row["tokens"] = {r: g.tokens for r, g in eng.results.items()}
     del eng
     gc.collect()        # the engine and its step cache form a cycle
     torch.cuda.empty_cache()
     return row
 
 
-def profile_engine(cfg, params, prompts) -> dict:
+def profile_engine(cfg, params, prompts) -> tuple:
     """A third, pipelined run of the same traffic.  During its first steps
     it keeps a frozen copy of the inputs of the largest paged-decode call
     the main path makes (most kv tokens); then ``torch.profiler`` traces
     PROFILE_STEPS steady steps: device time by kernel, and the device's busy
     share of the traced window (the profiler's own host overhead lengthens
-    the window, so the share is a lower bound)."""
+    the window, so the share is a lower bound).  Returns the captured
+    call's (inputs, scale)."""
     eng = make_engine(cfg, params, prompts, pipeline=True)
     with torch.no_grad(), LargestPagedCall() as cap:
         for _ in range(CAPTURE_STEPS):      # admission + first decode steps
@@ -638,7 +783,8 @@ def profile_engine(cfg, params, prompts) -> dict:
               and dev_us(e) > 0]
     device_us = sum(dev_us(e) for e in events)
     top = sorted(events, key=dev_us, reverse=True)[:12]
-    row = {"phase": "profile", "run": "pipelined", "steps": PROFILE_STEPS,
+    row = {"phase": "profile", "model": cfg.name, "run": "pipelined",
+           "steps": PROFILE_STEPS,
            "window_us": window_us, "device_us": device_us,
            "device_busy_share": device_us / window_us,
            "kernel_launches": sum(e.count for e in events),
@@ -648,7 +794,7 @@ def profile_engine(cfg, params, prompts) -> dict:
     del eng
     gc.collect()        # the engine and its step cache form a cycle
     torch.cuda.empty_cache()
-    return cap.args
+    return cap.args, cap.scale
 
 
 def profile_prefill(cfg, params, prompt) -> dict:
@@ -668,7 +814,7 @@ def profile_prefill(cfg, params, prompt) -> dict:
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     flash = [e for e in events if "flash_fwd" in e.key]
-    row = {"phase": "prefill", "prompt_len": len(prompt),
+    row = {"phase": "prefill", "model": cfg.name, "prompt_len": len(prompt),
            "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
            "flash_ms": sum(e.self_device_time_total for e in flash) / 1e3,
            "flash_launches": sum(e.count for e in flash),
@@ -700,7 +846,7 @@ def main() -> None:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, (L,)) for L in PROMPT_LENS]
     runs = [run_engine(cfg, params, prompts, pipeline=p) for p in (True, False)]
-    main_args = profile_engine(cfg, params, prompts)
+    main_args, _ = profile_engine(cfg, params, prompts)
     profile_prefill(cfg, params, prompts[int(np.argmax(PROMPT_LENS))])
     # the paged kernel at the largest call the main path made (float32 pools)
     main_row = paged_row(main_args, torch.float32, "main path")
@@ -715,22 +861,91 @@ def main() -> None:
                                            tag=f"{kv_dtype} pipelined")
         # the quantized kernel at the largest call the run made, for the
         # run's float32 queries and for bfloat16 ones
-        q, *rest = run.pop("captured")
-        for qq in (q, q.to(torch.bfloat16)):
-            row = paged_row((qq, *rest), qq.dtype, "main path")
+        args, _ = run.pop("captured")
+        for a in (args, as_bf16_call(args)):
+            row = paged_row(a, a[0].dtype, "main path")
             emit(row)
             ksum[row["name"]].append(row)
+    escalation = dict(num_instances=2, instances_per_node=2, tp=2,
+                      buckets=CPBuckets(edges=(48,), degrees=(1, 2)),
+                      shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4),
+                                                 s_buckets=(0, 1, 2, 4),
+                                                 window=2),
+                      max_slots_per_instance=4)
     rng = np.random.default_rng(0)
     run_engine(cfg, params, [rng.integers(0, cfg.vocab_size, (40,))], True,
                kv_dtype="fp8", tag="fp8 escalate", new_tokens=24,
-               escalate=True, num_instances=2, instances_per_node=2, tp=2,
-               buckets=CPBuckets(edges=(48,), degrees=(1, 2)),
-               shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4),
-                                          s_buckets=(0, 1, 2, 4), window=2),
-               max_slots_per_instance=4)
+               escalate=True, **escalation)
+
+    # the dense all-gather backend beside a routed twin: same tokens, and
+    # logits within DENSE_LOGIT_TOL
+    twin = run_engine(cfg, params, prompts, True, tag="routed twin",
+                      keep_logits=True)
+    dense = run_engine(cfg, params, prompts, True, tag="dense pipelined",
+                       keep_logits=True, backend="dense")
+    if dense["max_rounds_used"] < 1:
+        fail("dense pipelined: no step routed a row across instances")
+    if dense["tokens"] != twin["tokens"]:
+        fail(f"dense backend tokens {dense['tokens']} != routed "
+             f"{twin['tokens']}")
+    worst = max(float(np.abs(np.stack(dense["step_logits"][r])
+                             - np.stack(twin["step_logits"][r])).max())
+                for r in twin["step_logits"])
+    if worst > DENSE_LOGIT_TOL:
+        fail(f"dense backend logits differ from routed by {worst}")
+    emit({"phase": "dense", "tokens_equal": True, "worst_dlogit": worst,
+          "tol": DENSE_LOGIT_TOL,
+          "median_steady_step_ms": dense["median_steady_step_ms"],
+          "routed_median_steady_step_ms": twin["median_steady_step_ms"]})
+    del params, twin, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- MLA: MiniCPM3-4B at full width ---
+    mcfg = get_config("minicpm3-4b")
+    t0 = time.perf_counter()
+    mparams = transformer.init_params(mcfg, seed=0, device=DEV,
+                                      dtype=torch.float32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(mparams))
+    emit({"phase": "mla", "model": mcfg.name, "params": n_params,
+          "param_gb": n_params * 4 / 2**30,
+          "init_s": time.perf_counter() - t0})
+    rng = np.random.default_rng(0)
+    mprompts = [rng.integers(0, mcfg.vocab_size, (L,)) for L in PROMPT_LENS]
+    mruns = [run_engine(mcfg, mparams, mprompts, pipeline=p,
+                        tag=f"mla {'pipelined' if p else 'non-pipelined'}")
+             for p in (True, False)]
+    run_engine(mcfg, mparams, mprompts, True, tag="mla 2x4 pipelined",
+               num_instances=2, instances_per_node=2, tp=4,
+               buckets=CPBuckets(edges=(256,), degrees=(1, 2)))
+    mq = {}
+    for kv_dtype in ("fp8", "int8"):
+        mq[kv_dtype] = run = run_engine(mcfg, mparams, mprompts, True,
+                                        kv_dtype=kv_dtype,
+                                        tag=f"mla {kv_dtype} pipelined")
+        (args, sc) = run.pop("captured")
+        for a in (args, as_bf16_call(args)):
+            row = paged_row(a, a[0].dtype, "mla main path", scale=sc)
+            emit(row)
+            ksum[row["name"]].append(row)
+    rng = np.random.default_rng(0)
+    eprompt = [rng.integers(0, mcfg.vocab_size, (40,))]
+    for kv_dtype in ("bf16", "fp8"):
+        run_engine(mcfg, mparams, eprompt, True, kv_dtype=kv_dtype,
+                   tag=f"mla {'f32' if kv_dtype == 'bf16' else kv_dtype} "
+                       "escalate", new_tokens=24, escalate=True, **escalation)
+    margs, msc = profile_engine(mcfg, mparams, mprompts)
+    profile_prefill(mcfg, mparams, mprompts[int(np.argmax(PROMPT_LENS))])
+    for a in (margs, as_bf16_call(margs)):
+        row = paged_row(a, a[0].dtype, "mla main path", scale=msc)
+        emit(row)
+        ksum[row["name"]].append(row)
 
     src, replaces = ("src/repro_torch/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_attention.py:36")
+    fsrc, freplaces = ("src/repro_torch/csrc/flash_fwd.cu",
+                       "src/repro/kernels/flash_attention.py:27")
     kernels = []
     for name, source, repl, launches in (
             ("paged_decode", src, replaces,
@@ -739,9 +954,15 @@ def main() -> None:
              qruns["fp8"]["launches"]["paged_decode"]),
             ("paged_decode_int8", src, replaces,
              qruns["int8"]["launches"]["paged_decode"]),
-            ("flash_fwd", "src/repro_torch/csrc/flash_fwd.cu",
-             "src/repro/kernels/flash_attention.py:27",
-             runs[0]["launches"]["flash_fwd"])):
+            ("flash_fwd", fsrc, freplaces, runs[0]["launches"]["flash_fwd"]),
+            ("paged_decode_mla", src, replaces,
+             mruns[0]["launches"]["paged_decode"]),
+            ("paged_decode_mla_fp8", src, replaces,
+             mq["fp8"]["launches"]["paged_decode"]),
+            ("paged_decode_mla_int8", src, replaces,
+             mq["int8"]["launches"]["paged_decode"]),
+            ("flash_fwd_mla", fsrc, freplaces,
+             mruns[0]["launches"]["flash_fwd"])):
         rows = ksum[name]
         # the timing at the main path's shapes: the captured paged call, and
         # the 2000-token prompt's prefill attention; bf16 q beside it
@@ -762,6 +983,17 @@ def main() -> None:
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 if __name__ == "__main__":

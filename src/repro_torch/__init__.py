@@ -3,10 +3,10 @@ reference it is held against).
 
 Same module layout as ``repro``: ``configs`` (model configs), ``kernels``
 (hand-written Hopper kernels with their plain torch versions, ``ops``
-dispatch by tensor device), ``models`` (dense prefill forward), ``core``
-(host control plane, the four-phase DCP decode step on a virtual
-(instance, tp) mesh, prefill KV scatter, the per-bucket step cache) and
-``serving`` (``NanoCPEngine``).  Imports torch and numpy only.
+dispatch by tensor device), ``models`` (dense GQA and MLA prefill
+forward), ``core`` (host control plane, the four-phase DCP decode step on
+a virtual (instance, tp) mesh, prefill KV scatter, the per-bucket step
+cache) and ``serving`` (``NanoCPEngine``).  Imports torch and numpy only.
 """
 from __future__ import annotations
 

@@ -2,10 +2,12 @@
 from __future__ import annotations
 
 from .base import ModelConfig, ShapeCfg, reduced
+from .minicpm3_4b import CONFIG as minicpm3_4b
 from .tinyllama_1_1b import CONFIG as tinyllama_1_1b
 
-# Only the dense GQA archetype is ported so far (ROADMAP queue 1).
-CONFIGS: dict[str, ModelConfig] = {c.name: c for c in [tinyllama_1_1b]}
+# The archetypes ported so far: dense GQA and MLA (ROADMAP queue 1).
+CONFIGS: dict[str, ModelConfig] = {c.name: c for c in [tinyllama_1_1b,
+                                                        minicpm3_4b]}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -10,8 +10,10 @@ rotation by ``delta`` within ``node``-sized ring segments becomes
 pairs of ``node_rotation_pairs`` deliver.
 
 Rounds follow the ZIG-ZAG schedule of the reference: round r carries delta
-+1, -1, +2, -2, … (``ring_delta``).  The dense all-gather baseline is not
-ported yet (ROADMAP queue 1 item 4).
++1, -1, +2, -2, … (``ring_delta``).  The dense all-gather baseline
+(``allgather_backend``) gathers every instance's buffer; on the virtual
+mesh the ``[I, ...]`` tensor already is that gathered buffer, so reading a
+peer's rows is an index.
 """
 from __future__ import annotations
 
@@ -89,3 +91,20 @@ def gather_rows(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     rows = torch.where((idx >= 0)[:, None, :, None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
     return rows.reshape(I, tp, S, *rest)
+
+
+def allgather_backend(buf: torch.Tensor, peer: torch.Tensor,
+                      row: torch.Tensor | None = None) -> torch.Tensor:
+    """Dense all-gather baseline on the virtual mesh: what each instance
+    reads of the gathered ``[I, ...]`` buffer.  buf: [I, tp, R, ...].
+
+    ``peer`` [I]: instance i reads peer[i]'s whole buffer -> [I, tp, R, ...].
+    ``peer``, ``row`` [I, *X]: instance i reads row row[i, x] of peer
+    peer[i, x]'s buffer, on every tp device -> [I, tp, *X, ...].
+    """
+    if row is None:
+        return buf[peer]
+    tp = buf.shape[1]
+    jt = torch.arange(tp, device=buf.device).reshape(1, tp,
+                                                     *([1] * (peer.dim() - 1)))
+    return buf[peer[:, None], jt, row[:, None]]

@@ -1,5 +1,6 @@
 """DCP decode step (§5) on a virtual (instance, tp) mesh
-(port of ``repro/core/dcp.py``, dense GQA path, routed backend).
+(port of ``repro/core/dcp.py``: the dense GQA and MLA paths, routed and
+dense backends).
 
 The JAX package runs the step per device inside ``shard_map`` over the
 (`data`, `model`) mesh.  The port runs the whole mesh in one process on one
@@ -8,6 +9,8 @@ GPU: the serve state keeps its leading ``[I, tp]`` dims (pools
 those dims, and each collective becomes an index op:
 
   * ``ppermute`` (Phase 1 q-routing, Phase 3 res-routing) -> ``comm.rotate``;
+  * ``all_gather`` over instances (the dense backend) -> an index of the
+    ``[I, ...]`` tensor by peer (``comm.allgather_backend``);
   * ``all_gather`` over the page-stripe subgroup -> a reshape of the tp dim
     into (stripe p, kv-head group h);
   * ``psum`` over tp -> a sum over the tp dim.
@@ -23,13 +26,19 @@ block j, so ``x @ w`` viewed as ``[.., tp, C/tp]`` is every device's
 output); row-parallel weights are stored as ``[tp, R/tp, D]`` chunks and
 their partial products summed over tp, as the reference's psum does.
 
-Quantized pools (``kv_dtype`` fp8/int8) store codes plus per-page float32
-scales ``k_scale``/``v_scale`` ``[nb, n_attn, I, tp, F']``; appends quantize
-under the offset-0 rule (``kernels/quant.py``) and the paged kernel
-dequantizes as it reads.
+MLA caches one latent "head" per token, ``[c_kv | k_rope]`` (kv_lora_rank
++ rope dims), in a single ``kv_pool`` striped over every tp device (khs = 1,
+ps = tp); W_uk is absorbed into q and W_uv applied after the merge, so the
+paged kernel runs MQA over the latent with v a view of k's first
+kv_lora_rank dims.
 
-Not ported yet (each raises ``NotImplementedError``): the dense all-gather
-backend, MLA, SSM and encoder-decoder steps.
+Quantized pools (``kv_dtype`` fp8/int8) store codes plus per-page float32
+scales ``k_scale``/``v_scale`` (MLA: one ``kv_scale``)
+``[nb, n_attn, I, tp, F']``; appends quantize under the offset-0 rule
+(``kernels/quant.py``) and the paged kernel dequantizes as it reads.
+
+Not ported yet (each raises ``NotImplementedError``): MoE, SSM and
+encoder-decoder steps.
 """
 from __future__ import annotations
 
@@ -61,7 +70,7 @@ class DecodeDims:
     page: int = 64
     data_size: int = 16    # instances I
     tp: int = 16
-    backend: str = "routed"          # routed (dense: ROADMAP queue 1 item 4)
+    backend: str = "routed"          # routed | dense (all-gather baseline)
     rounds_used: int = -1            # effective W-1 rounds (-1 = all)
     MBT: int = 0                     # page blocks per work row per kv stripe
                                      # (0 -> MB; hybrid sharding)
@@ -77,11 +86,12 @@ class DecodeDims:
         return r if self.S > 0 else 0
 
 
+BACKENDS = ("routed", "dense")
+
+
 def check_dims(dims: DecodeDims) -> None:
-    if dims.backend != "routed":
-        raise NotImplementedError(
-            f"backend {dims.backend!r}: only the routed backend is ported; "
-            "the dense all-gather baseline is ROADMAP queue 1 item 4")
+    if dims.backend not in BACKENDS:
+        raise ValueError(f"backend {dims.backend!r}: one of {BACKENDS}")
     quant.check_kv_dtype(dims.kv_dtype)
 
 
@@ -171,11 +181,14 @@ def _head_tools(cfg: ModelConfig, tp: int):
 def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
     """Restructure prefill params for the decode step: pad q heads PER KV
     GROUP to the hybrid-sharding layout (grouped pad + chunk permutation),
-    tile kv heads across page subgroups, and cut the row-parallel weights
-    (``wo`` of attention and FFN) into ``[nb, tp, R/tp, D]`` chunks."""
+    tile kv heads across page subgroups, reshape MLA's up-projections per
+    head (``wk_b``/``wv_b`` ``[nb, hp, kvr, dn|dv]``, padded and permuted
+    like q), and cut the row-parallel weights (``wo`` of attention and FFN)
+    into ``[nb, tp, R/tp, D]`` chunks."""
     check_supported(cfg)
     hd = cfg.head_dim_
-    pad_q, pad_q_rows, tile_kv, _ = _head_tools(cfg, tp)
+    hp = attn_tp_geometry(cfg, tp)[0]
+    pad_q, pad_q_rows, tile_kv, perm = _head_tools(cfg, tp)
     if cfg.d_ff % tp:
         raise ValueError(f"d_ff={cfg.d_ff} does not split over tp={tp}")
 
@@ -183,13 +196,34 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
         nb, R, D = w.shape
         return w.reshape(nb, tp, R // tp, D).contiguous()
 
+    def per_head(w, per):
+        """[nb, kvr, H*per] -> [nb, hp, kvr, per], padded and permuted."""
+        nb, kvr = w.shape[:2]
+        w = w.reshape(nb, kvr, cfg.num_heads, per).permute(0, 2, 1, 3)
+        w = F.pad(w, (0, 0, 0, 0, 0, hp - cfg.num_heads))
+        return w[:, torch.tensor(perm, device=w.device)].contiguous()
+
+    def mla_mixer(mx):
+        dn, dr, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+        m = {"wkv_a": mx["wkv_a"], "kv_norm": mx["kv_norm"],
+             "wk_b": per_head(mx["wk_b"], dn), "wv_b": per_head(mx["wv_b"], dv),
+             "wo": row_chunks(pad_q_rows(mx["wo"], dv))}
+        if cfg.q_lora_rank:
+            m.update(wq_a=mx["wq_a"], q_norm=mx["q_norm"],
+                     wq_b=pad_q(mx["wq_b"], dn + dr).contiguous())
+        else:
+            m["wq"] = pad_q(mx["wq"], dn + dr).contiguous()
+        return m
+
     def conv_layer(lp):
         mx, ffn = lp["mixer"], lp["ffn"]
-        return {"ln1": lp["ln1"], "ln2": lp["ln2"],
-                "mixer": {"wq": pad_q(mx["wq"], hd).contiguous(),
-                          "wk": tile_kv(mx["wk"], hd).contiguous(),
-                          "wv": tile_kv(mx["wv"], hd).contiguous(),
-                          "wo": row_chunks(pad_q_rows(mx["wo"], hd))},
+        mixer = mla_mixer(mx) if cfg.is_mla else {
+            "wq": pad_q(mx["wq"], hd).contiguous(),
+            "wk": tile_kv(mx["wk"], hd).contiguous(),
+            "wv": tile_kv(mx["wv"], hd).contiguous(),
+            "wo": row_chunks(pad_q_rows(mx["wo"], hd))}
+        return {"ln1": lp["ln1"], "ln2": lp["ln2"], "mixer": mixer,
                 "ffn": {"wi_gate": ffn["wi_gate"], "wi_up": ffn["wi_up"],
                         "wo": row_chunks(ffn["wo"])}}
 
@@ -204,13 +238,15 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
 # =========================================================================== #
 def init_serve_state(cfg: ModelConfig, dims: DecodeDims, num_instances: int,
                      dtype=torch.bfloat16, device="cuda") -> dict:
-    """Zeroed pools ``[nb, n_attn, I, tp, F', page, kg*hd]``; the last frame
-    of each sub-pool is the scratch frame the allocator never hands out.
+    """Zeroed pools ``k_pool``/``v_pool`` ``[nb, n_attn, I, tp, F', page,
+    kg*hd]``, or for MLA one latent ``kv_pool`` ``[..., page, kvr + dr]``;
+    the last frame of each sub-pool is the scratch frame the allocator never
+    hands out.
 
     Quantized pools (``dims.kv_dtype`` fp8/int8) hold codes of the storage
-    dtype, plus ``k_scale``/``v_scale`` ``[nb, n_attn, I, tp, F']`` float32
-    scales set to 1 (any positive value works: a frame is always refilled
-    from offset 0 before it is read)."""
+    dtype, plus ``k_scale``/``v_scale`` (MLA: ``kv_scale``)
+    ``[nb, n_attn, I, tp, F']`` float32 scales set to 1 (any positive value
+    works: a frame is always refilled from offset 0 before it is read)."""
     check_supported(cfg)
     check_dims(dims)
     dev = resolve_device(device)
@@ -219,17 +255,18 @@ def init_serve_state(cfg: ModelConfig, dims: DecodeDims, num_instances: int,
     _, _, ps = attn_tp_geometry(cfg, dims.tp)
     kg = kv_group_size(cfg, dims.tp)
     fp = -(-(dims.num_frames - 1) // ps) + 1     # frames/stripe + scratch
-    shape = (nb, n_attn, num_instances, dims.tp, fp, dims.page,
-             kg * cfg.head_dim_)
+    width = (cfg.kv_lora_rank + cfg.qk_rope_head_dim if cfg.is_mla
+             else kg * cfg.head_dim_)
+    shape = (nb, n_attn, num_instances, dims.tp, fp, dims.page, width)
+    pools = ("kv_pool",) if cfg.is_mla else ("k_pool", "v_pool")
+    scales = ("kv_scale",) if cfg.is_mla else ("k_scale", "v_scale")
     if not quant.is_quantized(dims.kv_dtype):
-        return {"k_pool": torch.zeros(shape, dtype=dtype, device=dev),
-                "v_pool": torch.zeros(shape, dtype=dtype, device=dev)}
+        return {k: torch.zeros(shape, dtype=dtype, device=dev) for k in pools}
     pdt = quant.kv_storage_dtype(dims.kv_dtype, dtype)
-    sc_shape = shape[:5]
-    return {"k_pool": torch.zeros(shape, dtype=pdt, device=dev),
-            "v_pool": torch.zeros(shape, dtype=pdt, device=dev),
-            "k_scale": torch.ones(sc_shape, dtype=torch.float32, device=dev),
-            "v_scale": torch.ones(sc_shape, dtype=torch.float32, device=dev)}
+    state = {k: torch.zeros(shape, dtype=pdt, device=dev) for k in pools}
+    state.update({k: torch.ones(shape[:5], dtype=torch.float32, device=dev)
+                  for k in scales})
+    return state
 
 
 # =========================================================================== #
@@ -305,15 +342,19 @@ def _split_pages(bt, length, ps: int, p_j: int, mbt: int, page: int):
 
 
 def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
-                   dk: int, dv: int, geom, k_scale=None, v_scale=None):
+                   dk: int, dv: int, geom, scale: float, k_scale=None,
+                   v_scale=None):
     """Phases 1-4 for one attention layer, every virtual device at once.
 
     q: [I, tp, M, hl, dk] local-slot queries.  k_pool/v_pool:
     [I, tp, F', page, kg*(dk|dv)] sub-pools (device (i, j) holds kv-head
     group j % khs, page stripe j // khs), updated IN PLACE by this step's
     appends.  new_k/new_v: [I, tp, M, kg*(dk|dv)] this step's token KV.
-    k_scale/v_scale: [I, tp, F'] per-page scales iff the pools are
-    quantized, updated in place with the appends.
+    MLA passes its latent pool as k_pool with v_pool = new_v = None: v is
+    then the view ``k[..., :dv]`` of the same pages, and its scales are
+    k_scale's.  k_scale/v_scale: [I, tp, F'] per-page scales iff the pools
+    are quantized, updated in place with the appends.  ``scale`` multiplies
+    the scores.
     Returns merged [I, tp, M, hl, dv].
     """
     I, tp = dims.data_size, dims.tp
@@ -325,7 +366,11 @@ def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
     kg = k_pool.shape[-1] // dk
     dev = q.device
     jt = torch.arange(tp, device=dev)
+    ii1 = torch.arange(I, device=dev)
     p_of = jt // khs                                  # page stripe of device j
+    dense = dims.backend == "dense" and R > 0
+    # instance i's zig-zag ring segment starts at node0[i] (dense backend)
+    node0 = (ii1 // W) * W
 
     # -- KV append (write-then-attend) --
     # Only the frame's stripe owner writes; everyone else (and inactive
@@ -339,23 +384,37 @@ def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
     af = torch.where(mine, af_g // ps, torch.full_like(af_g, Fp - 1))
     ao = torch.where(mine, tbl["append_off"].long()[:, None, :],
                      (torch.arange(M, device=dev) % page)[None, None, :])
-    ii = torch.arange(I, device=dev)[:, None, None]
+    ii = ii1[:, None, None]
     jj = jt[None, :, None]
-    if k_scale is None:
-        k_pool[ii, jj, af, ao] = new_k.to(k_pool.dtype)
-        v_pool[ii, jj, af, ao] = new_v.to(v_pool.dtype)
-    else:
-        # offset-0 rule: an append at offset 0 starts the page with this
-        # token's amax/qmax; a later one clips into the page's scale.  Rows
-        # that repeat only hit the scratch frame, whose contents are never read
-        for pool, sc, new in ((k_pool, k_scale, new_k), (v_pool, v_scale, new_v)):
+    appends = [(k_pool, k_scale, new_k)]
+    if v_pool is not None:
+        appends.append((v_pool, v_scale, new_v))
+    for pool, sc, new in appends:
+        if sc is None:
+            pool[ii, jj, af, ao] = new.to(pool.dtype)
+        else:
+            # offset-0 rule: an append at offset 0 starts the page with this
+            # token's amax/qmax; a later one clips into the page's scale.
+            # Rows that repeat only hit the scratch frame, never read
             quant.write_offset0(pool, (ii, jj, af, ao), sc, (ii, jj, af), new,
                                 quant.amax_scale(new, dims.kv_dtype), ao == 0,
                                 dims.kv_dtype)
 
     # -- Phase 1: Q-routing over the zig-zag ring --
-    recv_q = (comm.route_rounds(lambda d, idx: comm.gather_rows(q, idx),
-                                tbl["q_send_idx"], R, node=W) if R > 0 else [])
+    if dense:
+        # all-gather baseline: every instance holds every peer's q buffer
+        # and picks the rows the routed backend would have received from
+        # round d's sender
+        recv_q = []
+        for d in range(1, R + 1):
+            src = node0 + (ii1 - node0 - int(comm.ring_delta(d))) % W
+            recv_q.append(comm.gather_rows(comm.allgather_backend(q, src),
+                                           tbl["q_recv_slot"][:, d - 1]))
+    elif R > 0:
+        recv_q = comm.route_rounds(lambda d, idx: comm.gather_rows(q, idx),
+                                   tbl["q_send_idx"], R, node=W)
+    else:
+        recv_q = []
     q_pool = torch.cat([q] + recv_q, dim=2) if recv_q else q
 
     # -- Phase 2: paged attention, one launch for the whole virtual mesh --
@@ -377,19 +436,25 @@ def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
     Gq = q_work.shape[3]
     # flatten (I, tp, F') into one page axis: device (i, j) owns pages
     # [(i*tp + j) * F', (i*tp + j + 1) * F')
-    dev_off = ((torch.arange(I, device=dev)[:, None] * tp + jt[None, :]) * Fp)
+    dev_off = ((ii1[:, None] * tp + jt[None, :]) * Fp)
     bt_flat = (bt_dev + dev_off[..., None, None].to(bt_dev.dtype)).reshape(
         I * tp * N, -1).to(torch.int32)
     # q stays in the model dtype; unquantized pools share it
     q_flat = q_work.reshape(I * tp * N, Gq, dk)
     if k_scale is None:
         q_flat = q_flat.to(k_pool.dtype)
+    kp = k_pool.reshape(I * tp * Fp, page, kg, dk)
+    ks = None if k_scale is None else k_scale.reshape(-1)
+    if v_pool is None:
+        # MLA: v is the latent's first dv dims, a strided view (never a
+        # copy), read with the latent's scales
+        vp, vs = kp[..., :dv], ks
+    else:
+        vp = v_pool.reshape(I * tp * Fp, page, kg, dv)
+        vs = None if v_scale is None else v_scale.reshape(-1)
     out, lse = ops.paged_decode_attention(
-        q_flat, k_pool.reshape(I * tp * Fp, page, kg, dk),
-        v_pool.reshape(I * tp * Fp, page, kg, dv),
-        bt_flat, len_dev.reshape(-1).to(torch.int32), scale=dk ** -0.5,
-        k_scale=None if k_scale is None else k_scale.reshape(I * tp * Fp),
-        v_scale=None if v_scale is None else v_scale.reshape(I * tp * Fp))
+        q_flat, kp, vp, bt_flat, len_dev.reshape(-1).to(torch.int32),
+        scale=scale, k_scale=ks, v_scale=vs)
     out = out.reshape(I, tp, N, Gq, dv)
     lse = lse.reshape(I, tp, N, Gq)
     if ps > 1:
@@ -401,6 +466,21 @@ def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
         ml = ml.reshape(I, khs, N, ps, hl)
         out = torch.stack([mo[:, j % khs, :, j // khs] for j in range(tp)], 1)
         lse = torch.stack([ml[:, j % khs, :, j // khs] for j in range(tp)], 1)
+
+    # -- Phases 3+4, dense baseline: every peer's partials, indexed by the
+    #    owner tables (merge_round / merge_peer_row) --
+    if dense:
+        owner = (node0[:, None, None]
+                 + (ii1[:, None, None] - node0[:, None, None]
+                    + comm.ring_delta(tbl["merge_round"].long())) % W)
+        row = tbl["merge_peer_row"].long()                       # [I, M, W]
+        parts = comm.allgather_backend(out, owner, row.clamp(min=0))
+        plse = comm.allgather_backend(lse, owner, row.clamp(min=0))
+        mask = (row >= 0)[:, None].expand(I, tp, M, W)
+        merged, _ = ops.merge_lse(parts.permute(3, 0, 1, 2, 4, 5),
+                                  plse.permute(3, 0, 1, 2, 4),
+                                  mask=mask.permute(3, 0, 1, 2))
+        return merged.to(q.dtype)
 
     # -- Phase 3: Res-routing (reverse rotations) --
     if R > 0:
@@ -424,10 +504,20 @@ def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
     return merged.to(q.dtype)
 
 
-def _attn_layer(cfg: ModelConfig, dims: DecodeDims, lp: dict, x, k_pool,
-                v_pool, tbl: dict, geom, k_scale=None, v_scale=None):
+def _to_rows(o: torch.Tensor, tp: int) -> torch.Tensor:
+    """[I, tp, M, hl, d] per-device head outputs -> [tp, I*M, hl*d], the
+    left operand of the row-parallel ``wo`` chunks."""
+    I, _, M, hl, d = o.shape
+    return o.reshape(I, tp, M, hl * d).transpose(0, 1).reshape(tp, I * M,
+                                                                hl * d)
+
+
+def _attn_layer(cfg: ModelConfig, dims: DecodeDims, lp: dict, x, pools,
+                tbl: dict, geom):
     """One GQA attention layer for every device.  x: [I*M, D] (identical on
-    each tp device); returns the layer output [I*M, D] after the psum."""
+    each tp device); pools = (k_pool, v_pool, k_scale, v_scale), the scales
+    None for unquantized pools.  Returns the layer output [I*M, D] after
+    the psum."""
     I, tp, M = dims.data_size, dims.tp, dims.M
     hd = cfg.head_dim_
     hl = geom[0] // tp
@@ -440,12 +530,50 @@ def _attn_layer(cfg: ModelConfig, dims: DecodeDims, lp: dict, x, k_pool,
     pos = tbl["slot_pos"][:, None, :]                           # [I, 1, M]
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta).reshape(I, tp, M, kg * hd)
-    merged = _dcp_attention(dims, q, k_pool, v_pool, k, v, tbl, dk=hd, dv=hd,
-                            geom=geom, k_scale=k_scale,
-                            v_scale=v_scale)                    # [I,tp,M,hl,hd]
-    o = merged.reshape(I, tp, M, hl * hd).transpose(0, 1).reshape(tp, I * M,
-                                                                  hl * hd)
-    return torch.bmm(o, mx["wo"]).sum(dim=0)                    # psum over tp
+    merged = _dcp_attention(dims, q, pools[0], pools[1], k, v, tbl, dk=hd,
+                            dv=hd, geom=geom, scale=hd ** -0.5,
+                            k_scale=pools[2],
+                            v_scale=pools[3])                   # [I,tp,M,hl,hd]
+    return torch.bmm(_to_rows(merged, tp), mx["wo"]).sum(dim=0)  # psum over tp
+
+
+def _mla_layer(cfg: ModelConfig, dims: DecodeDims, lp: dict, x, pools,
+               tbl: dict, geom):
+    """One MLA layer for every device (the reference's absorbed decode).
+    q_lat = q_nope . wk_b[h] joins q_rope as the [kvr + dr] latent query;
+    the token's latent [c_kv | k_rope] is appended to the one latent pool;
+    the merged latent output goes through wv_b[h] and the row-parallel wo,
+    summed over tp.  pools = (kv_pool, None, kv_scale or None, None)."""
+    I, tp, M = dims.data_size, dims.tp, dims.M
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    hl = geom[0] // tp
+    mx = lp["mixer"]
+    h = L.apply_norm(cfg, lp["ln1"], x)
+    pos = tbl["slot_pos"][:, None, :]                           # [I, 1, M]
+    if cfg.q_lora_rank:
+        qn = L.rms_norm_vec(h @ mx["wq_a"], mx["q_norm"]) @ mx["wq_b"]
+    else:
+        qn = h @ mx["wq"]
+    qn = qn.reshape(I, M, tp, hl, dn + dr).transpose(1, 2)      # [I,tp,M,hl,*]
+    q_rope = L.apply_rope(qn[..., dn:], pos, cfg.rope_theta)
+    q_lat = torch.einsum("itmhd,thkd->itmhk", qn[..., :dn],
+                         mx["wk_b"].reshape(tp, hl, kvr, dn))
+    q = torch.cat([q_lat, q_rope], dim=-1)                      # [.., kvr+dr]
+    kv = h @ mx["wkv_a"]
+    c_kv = L.rms_norm_vec(kv[..., :kvr], mx["kv_norm"])
+    k_rope = L.apply_rope(kv[..., kvr:][:, None, :],
+                          tbl["slot_pos"].reshape(I * M),
+                          cfg.rope_theta)[:, 0, :]
+    new_k = torch.cat([c_kv, k_rope], dim=-1).reshape(I, 1, M, kvr + dr)
+    merged = _dcp_attention(dims, q, pools[0], None,
+                            new_k.expand(I, tp, M, kvr + dr), None, tbl,
+                            dk=kvr + dr, dv=kvr, geom=geom,
+                            scale=(dn + dr) ** -0.5,
+                            k_scale=pools[2])                   # [I,tp,M,hl,kvr]
+    o = torch.einsum("itmhk,thkd->itmhd", merged,
+                     mx["wv_b"].reshape(tp, hl, kvr, dv))
+    return torch.bmm(_to_rows(o, tp), mx["wo"]).sum(dim=0)      # psum over tp
 
 
 def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
@@ -462,22 +590,22 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
     pattern = cfg.block_pattern()
     geom = attn_tp_geometry(cfg, dims.tp)
     I, M, tp = dims.data_size, dims.M, dims.tp
+    layer = _mla_layer if cfg.is_mla else _attn_layer
+    names = (("kv_pool", None, "kv_scale", None) if cfg.is_mla
+             else ("k_pool", "v_pool", "k_scale", "v_scale"))
 
     def step(params, state, tbl):
         tokens = tbl["slot_token"]                                # [I, M]
         tbl = _mask_eos_slots(dims, tbl, tokens)
         emb = params["embed"]["tok"]
         x = _embed_lookup(emb, tokens, tp).to(emb.dtype).reshape(I * M, -1)
-        kp_all, vp_all = state["k_pool"], state["v_pool"]
-        ks_all, vs_all = state.get("k_scale"), state.get("v_scale")
         for bi in range(cfg.num_blocks):
             bp = block_slice(params["blocks"], bi)
             for li, kind in enumerate(pattern):
                 lp = bp["layers"][li]
-                scales = ({} if ks_all is None else
-                          {"k_scale": ks_all[bi, li], "v_scale": vs_all[bi, li]})
-                x = x + _attn_layer(cfg, dims, lp, x, kp_all[bi, li],
-                                    vp_all[bi, li], tbl, geom, **scales)
+                pools = tuple(None if n is None or n not in state
+                              else state[n][bi, li] for n in names)
+                x = x + layer(cfg, dims, lp, x, pools, tbl, geom)
                 h = L.apply_norm(cfg, lp["ln2"], x)
                 x = x + dense_decode_ffn(cfg, lp["ffn"], h, tp)
         x = L.apply_norm(cfg, params["final_norm"], x)

@@ -1,5 +1,6 @@
 """KV-cache migration: prefill output -> DCP-placed pool frames (§3 (2)-(3)),
-port of ``repro/core/migrate.py`` (GQA pools, unquantized or fp8/int8).
+port of ``repro/core/migrate.py`` (GQA pools and MLA's latent pool,
+unquantized or fp8/int8).
 
 Token->shard assignment is contiguous ranges in sorted binding order
 (decode attention + LSE merge are order-agnostic over the prefix, so any
@@ -25,8 +26,8 @@ Quantized pools move with their per-page scales under the offset-0 rule
 dequantizes with the source scales and requantizes against the
 destination's.
 
-Not ported yet: MLA latents (ROADMAP queue 1 item 9), SSM states (item 11)
-and whisper cross/self KV (item 12).
+Not ported yet: SSM states (ROADMAP queue 1 item 11) and whisper cross/self
+KV (item 12).
 """
 from __future__ import annotations
 
@@ -62,7 +63,9 @@ def load_prefill_kv(cfg: ModelConfig, cluster: ClusterState, dims: DecodeDims,
                     state_np: dict, rid: int, kv_layers) -> None:
     """Write one request's prefill KV into the (numpy) pool arrays.
 
-    kv_layers: per attention layer, (k [len, Hkv, hd], v [len, Hkv, hd]).
+    kv_layers: per attention layer, (k [len, Hkv, hd], v [len, Hkv, hd]) or
+    (c_kv [len, kvr], k_rope [len, dr]) for MLA, whose latent
+    [c_kv | k_rope] goes to ``kv_pool``.
     """
     page = dims.page
     pt = cluster.page_table
@@ -75,6 +78,16 @@ def load_prefill_kv(cfg: ModelConfig, cluster: ClusterState, dims: DecodeDims,
     # stores its kg = Hkv/khs heads flattened into the last dim (core/dcp.py)
     for a, (k, v) in enumerate(kv_layers):
         bi, pos = attn_layer_index(cfg, a)
+        if cfg.is_mla:
+            lat = np.concatenate([np.asarray(k, np.float32),
+                                  np.asarray(v, np.float32)], axis=-1)
+            pool = state_np["kv_pool"]           # [nb, na, I, tp, F', page, dk]
+            for s, start, t in ranges:
+                frames = pt.shard_frames(rid, s)
+                for j in range(t):
+                    f, o = frames[j // page], j % page
+                    pool[bi, pos, s, (f % ps) * khs, f // ps, o] = lat[start + j]
+            continue
         k = np.asarray(k, np.float32)
         v = np.asarray(v, np.float32)
         kp, vp = state_np["k_pool"], state_np["v_pool"]
@@ -152,25 +165,31 @@ class PrefillScatter:
                             (a, b, ii, c, ff), x, fresh[:, :, lin], has0[lin],
                             kv_dtype)
 
-    def scatter_kv(self, state: dict, k: torch.Tensor, v: torch.Tensor,
+    def pool_keys(self) -> tuple:
+        """(pool, scale) state keys: MLA's one latent pool, or k and v."""
+        if self.cfg.is_mla:
+            return (("kv_pool", "kv_scale"),)
+        return (("k_pool", "k_scale"), ("v_pool", "v_scale"))
+
+    def scatter_kv(self, state: dict, k: torch.Tensor, v: torch.Tensor | None,
                    coords: np.ndarray) -> dict:
         """k, v: [nb, na, T, khs, kg*d] device tensors (the Hkv head axis
-        reshaped to khs groups of kg heads); coords from ``prefill_coords``
-        (concatenated over the admitted batch).  Writes in place; returns
-        ``state``.  Quantized pools quantize on the write, with their
-        scales (``quantized_write``)."""
-        kp, vp = state["k_pool"], state["v_pool"]
-        cs = torch.as_tensor(np.asarray(coords, np.int64), device=kp.device)
+        reshaped to khs groups of kg heads); for MLA k is the latent
+        [nb, na, T, 1, kvr + dr] and v is None.  coords from
+        ``prefill_coords`` (concatenated over the admitted batch).  Writes
+        in place; returns ``state``.  Quantized pools quantize on the
+        write, with their scales (``quantized_write``)."""
+        dev = k.device
+        cs = torch.as_tensor(np.asarray(coords, np.int64), device=dev)
         inst, stripe, subf, off = cs
-        c = stripe[:, None] * self.khs + torch.arange(self.khs,
-                                                      device=kp.device)
+        c = stripe[:, None] * self.khs + torch.arange(self.khs, device=dev)
         ii, ff, oo = inst[:, None], subf[:, None], off[:, None]
-        if "k_scale" in state:
-            self.quantized_write(kp, state["k_scale"], k, (ii, c, ff), off)
-            self.quantized_write(vp, state["v_scale"], v, (ii, c, ff), off)
-            return state
-        kp[:, :, ii, c, ff, oo] = k.to(kp.dtype)
-        vp[:, :, ii, c, ff, oo] = v.to(vp.dtype)
+        for (pkey, skey), x in zip(self.pool_keys(), (k, v)):
+            pool = state[pkey]
+            if skey in state:
+                self.quantized_write(pool, state[skey], x, (ii, c, ff), off)
+            else:
+                pool[:, :, ii, c, ff, oo] = x.to(pool.dtype)
         return state
 
 
@@ -198,7 +217,8 @@ class KVReshard:
         if src.shape[1] == 0:
             return state
         khs, ps = self.sc.khs, self.sc.ps
-        dev = state["k_pool"].device
+        keys = self.sc.pool_keys()
+        dev = state[keys[0][0]].device
         hh = torch.arange(khs, device=dev)
         s = torch.as_tensor(np.asarray(src, np.int64), device=dev)
         d = torch.as_tensor(np.asarray(dst, np.int64), device=dev)
@@ -207,12 +227,12 @@ class KVReshard:
         src_ix = (s[0][:, None], c_s, (s[1] // ps)[:, None], s[2][:, None])
         dst_ix = (d[0][:, None], c_d, (d[1] // ps)[:, None], d[2][:, None])
         lead = (slice(None), slice(None))
-        vals = {key: state[key][lead + src_ix] for key in ("k_pool", "v_pool")}
-        if "k_scale" in state:
-            for key, skey in (("k_pool", "k_scale"), ("v_pool", "v_scale")):
+        vals = {key: state[key][lead + src_ix] for key, _ in keys}
+        if keys[0][1] in state:
+            for key, skey in keys:
                 vals[key] = quant.dequantize(
                     vals[key], state[skey][lead + src_ix[:3]][..., None])
-            for key, skey in (("k_pool", "k_scale"), ("v_pool", "v_scale")):
+            for key, skey in keys:
                 self.sc.quantized_write(state[key], state[skey], vals[key],
                                         dst_ix[:3], d[2])
             return state

@@ -13,7 +13,10 @@
 //   lse          [N, Hq]  float32    -1e30 for an inactive row
 //   k_scale, v_scale [P]  float32    per-page scales, quantized pools only
 //
-// The G = Hq / Hkv query heads of kv head h are q[n, h*G : (h+1)*G].
+// The G = Hq / Hkv query heads of kv head h are q[n, h*G : (h+1)*G].  Head
+// dims go up to 384: MLA decodes over one latent "head" of kv_lora_rank +
+// rope dims (MiniCPM3-4B: 256 + 32 = 288, G = 40 q heads, v the view
+// k[..., :256]).
 //
 // Types: q and out are Tq (float or bfloat16).  Pages are Tkv: Tq itself,
 // or a quantized pool of fp8 e4m3 or int8 codes with one float32 scale per
@@ -50,6 +53,12 @@
 // * Fused dequant.  A quantized unit is read from the ring as raw codes;
 //   each token's page's k scale multiplies its score and its v scale its
 //   probability, so no dequantized pool exists in device memory.
+// * Wide heads.  Each score lane dots kChunks 4-value chunks of a K row
+//   (a template parameter: 2 up to Dk 256, 3 up to Dk 384), so MLA's
+//   288-wide latent keeps q in registers as the narrow heads do; its ring
+//   drops to two stages where three do not fit the shared memory.  MLA's
+//   v is a view of k: the kernel stages the shared 256 dims twice, once as
+//   K and once as V.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -65,6 +74,7 @@ constexpr int kUnit = 32;       // tokens per ring stage: one per lane
 constexpr int kPS = kUnit + 4;  // p_s row stride: a warp's 8 heads, 8 bank groups
 constexpr int kMaxStages = 3;   // ring depth
 constexpr int kMaxPairs = 16;   // (head, 4-column) accumulators per thread
+constexpr int kMaxChunks = 3;   // 4-value K chunks per score lane: Dk <= 384
 constexpr int kThreads = 256;   // 8 warps per block
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -153,7 +163,7 @@ struct Args {
   int Hq, Hkv, Dk, Dv, page, MB, pps, S;
   int nstages;            // ring depth, 2..kMaxStages
   int gran;               // cp.async size in bytes: 16, 8 or 4
-  int tpt;                // scores: lanes per token (2*tpt 4-value chunks cover Dk)
+  int tpt;                // scores: lanes per token (kChunks*tpt 4-value chunks cover Dk)
   int tgroups;            // p @ v: token groups (kThreads / tgroups threads each)
   int page_shift;         // log2(page) when page is a power of two, else -1
   int rowk, rowv;         // bytes of one staged K / V row (16-byte multiples)
@@ -173,8 +183,8 @@ __device__ __forceinline__ int2 split_tokens(const Args& a, int length, int s) {
 // kThreads threads in units of kUnit tokens (a unit may span pages).  Per
 // unit, three steps with a barrier after each:
 //  - scores: threads (token, dim lane) dot each staged K value once
-//    against 8 heads' q held in registers and sum across their lanes by
-//    shuffles;
+//    against 8 heads' q held in registers (kChunks 4-value chunks per
+//    lane) and sum across their lanes by shuffles;
 //  - softmax: a warp per head, lane = token, with the running max and sum
 //    in shared memory;
 //  - p @ v: thread (token group, pair) accumulates a (head, 4-column) pair
@@ -188,7 +198,7 @@ __device__ __forceinline__ int2 split_tokens(const Args& a, int length, int s) {
 // corrections, m_s and l_s [G] the running max and sum, bt_s [pps] the
 // split's page ids, ks_s/vs_s [pps] their scales; then the ring: nstages x
 // (K [kUnit][rowk], V [kUnit][rowv]).
-template <typename Tq, typename Tkv, int kPairs>
+template <typename Tq, typename Tkv, int kPairs, int kChunks>
 __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
   constexpr bool kQuant = sizeof(Tkv) == 1;
   constexpr int kWarps = kThreads / 32;
@@ -316,14 +326,14 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
     const int t0 = t_begin + u * kUnit;
     const int valid = min(kUnit, t_end - t0);
 
-    // scores: K row t's 4-value chunks c and c + tpt against 8 heads' q
+    // scores: K row t's 4-value chunks c + e*tpt against 8 heads' q
 #pragma unroll 1
     for (int g0 = 0; g0 < G; g0 += 8) {
-      float4 qr[8][2];
+      float4 qr[8][kChunks];
 #pragma unroll
       for (int hh = 0; hh < 8; ++hh)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
+        for (int e = 0; e < kChunks; ++e) {
           const int d4 = c_dim + e * tpt;
           qr[hh][e] = g0 + hh < G && d4 < Dk4
                           ? reinterpret_cast<const float4*>(q_s)[(g0 + hh) * Dk4 + d4]
@@ -336,7 +346,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
         for (int hh = 0; hh < 8; ++hh) sd[hh] = 0.f;
         if (t < valid) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
+          for (int e = 0; e < kChunks; ++e) {
             const int d4 = c_dim + e * tpt;
             if (d4 < Dk4) {
               const float4 x = load4<Tkv>(sk + t * a.rowk, d4);
@@ -497,7 +507,7 @@ __global__ void merge_kernel(const Args a, int N) {
 
 int round16(int x) { return (x + 15) & ~15; }
 
-template <typename Tq, typename Tkv, int kPairs>
+template <typename Tq, typename Tkv, int kPairs, int kChunks>
 int launch(Args a, int N, cudaStream_t stream) {
   if (sizeof(Tkv) == 1 && (a.k_scale == nullptr || a.v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -512,7 +522,8 @@ int launch(Args a, int N, cudaStream_t stream) {
   a.page_shift = -1;
   for (int sh = 0; sh < 31; ++sh)
     if (a.page == (1 << sh)) a.page_shift = sh;
-  for (a.tpt = 1; a.tpt < 32 && 2 * a.tpt < Dk4;) a.tpt *= 2;
+  for (a.tpt = 1; a.tpt < 32 && kChunks * a.tpt < Dk4;) a.tpt *= 2;
+  if (kChunks * a.tpt < Dk4) return (int)cudaErrorInvalidValue;
   // token groups for p @ v: as many as idle threads allow, up to 8
   a.tgroups = 1;
   while (kPairs == 1 && a.tgroups < 8 && 2 * a.tgroups * pairs <= kThreads) a.tgroups *= 2;
@@ -538,13 +549,13 @@ int launch(Args a, int N, cudaStream_t stream) {
   if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
   static size_t smem_set = 48 * 1024;   // per instantiation
   if (smem > smem_set) {
-    e = cudaFuncSetAttribute(paged_split_kernel<Tq, Tkv, kPairs>,
+    e = cudaFuncSetAttribute(paged_split_kernel<Tq, Tkv, kPairs, kChunks>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
   dim3 grid(N, a.Hkv, a.S);
-  paged_split_kernel<Tq, Tkv, kPairs><<<grid, kThreads, smem, stream>>>(a);
+  paged_split_kernel<Tq, Tkv, kPairs, kChunks><<<grid, kThreads, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.S == 1) return (int)e;
   const long long total = (long long)N * a.Hq * (a.Dv + 1);
@@ -552,14 +563,24 @@ int launch(Args a, int N, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// 2 or kMaxChunks 4-value K chunks per score lane: the fewest that cover
+// Dk with at most 32 lanes per token
+template <typename Tq, typename Tkv, int kPairs>
+int launch_chunks(const Args& a, int N, cudaStream_t s) {
+  const int Dk4 = (a.Dk + 3) / 4;
+  if (Dk4 <= 2 * 32) return launch<Tq, Tkv, kPairs, 2>(a, N, s);
+  if (Dk4 <= kMaxChunks * 32) return launch<Tq, Tkv, kPairs, kMaxChunks>(a, N, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // 1, 4 or kMaxPairs (head, 4-column) accumulators per thread: the fewest
 // that cover G * Dv/4 pairs (fewer registers, more blocks per SM)
 template <typename Tq, typename Tkv>
 int launch_shape(const Args& a, int N, cudaStream_t s) {
   const int pairs = (a.Hq / a.Hkv) * ((a.Dv + 3) / 4);
-  if (pairs <= kThreads) return launch<Tq, Tkv, 1>(a, N, s);
-  if (pairs <= 4 * kThreads) return launch<Tq, Tkv, 4>(a, N, s);
-  if (pairs <= kMaxPairs * kThreads) return launch<Tq, Tkv, kMaxPairs>(a, N, s);
+  if (pairs <= kThreads) return launch_chunks<Tq, Tkv, 1>(a, N, s);
+  if (pairs <= 4 * kThreads) return launch_chunks<Tq, Tkv, 4>(a, N, s);
+  if (pairs <= kMaxPairs * kThreads) return launch_chunks<Tq, Tkv, kMaxPairs>(a, N, s);
   return (int)cudaErrorInvalidValue;
 }
 

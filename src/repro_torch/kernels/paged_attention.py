@@ -25,7 +25,8 @@ units one after another, behind barriers, and two launches.  The design:
   the steps of a unit through shared memory;
 * strided pools: the pages are passed with their own page, token and head
   strides for k and for v (v may be a view of k, as MLA's latent pool
-  is), never copied.  A pool's last dim must be contiguous and its base
+  is: Dk 288, Dv 256 for MiniCPM3-4B, G = 40 q heads on one latent head),
+  never copied.  A pool's last dim must be contiguous and its base
   and strides multiples of 4 bytes (16 for full-width copies); any other
   layout raises.
 
@@ -61,7 +62,9 @@ LAUNCHES_BY_PAGE: dict = {}
 _Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 # page dtype of a quantized pool -> the C entry's kv_type code
 _QUANT_PAGES = {torch.float8_e4m3fn: 1, torch.int8: 2}
-MAX_HEAD_DIM = 256
+# K rows are dotted in at most 3 four-value chunks per lane of 32 (the
+# kernel's kMaxChunks): MLA's 288-wide latent (MiniCPM3-4B) fits
+MAX_HEAD_DIM = 384
 # the kernel's (head, 4-column) accumulators: 16 per thread, 256 threads
 MAX_PAIRS = 16 * 256
 # blocks per SM that ``plan_split`` aims for when every row is full: a
@@ -164,10 +167,10 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     q [N, Hq, Dk]; k_pages [P, page, Hkv, Dk]; v_pages [P, page, Hkv, Dv];
     block_tables [N, MB] int32; lengths [N] int32.  q is float32 or
     bfloat16; the pages are in q's dtype, or fp8 e4m3 / int8 codes with
-    ``k_scale``/``v_scale`` [P] float32.  Any head dims up to 256 (no
-    padding).  The pools are used in place with their own strides (see the
-    module note).  Returns out [N, Hq, Dv] in q's dtype and lse [N, Hq]
-    float32.
+    ``k_scale``/``v_scale`` [P] float32.  Any head dims up to
+    ``MAX_HEAD_DIM`` = 384 (no padding).  The pools are used in place with
+    their own strides (see the module note).  Returns out [N, Hq, Dv] in
+    q's dtype and lse [N, Hq] float32.
     """
     global LAUNCHES
     if q.device.type == "cpu":

@@ -30,6 +30,15 @@ def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
 
 
+def rms_norm_vec(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis with an explicit scale vector (MLA's
+    q/kv latent norms), in float32, result in x's dtype."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
 # --------------------------------------------------------------------------- #
 # rotary embeddings
 # --------------------------------------------------------------------------- #

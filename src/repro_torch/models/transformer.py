@@ -1,11 +1,11 @@
-"""Decoder-only trunk: init + prefill forward for the dense family
-(port of ``repro/models/transformer.py``).
+"""Decoder-only trunk: init + prefill forward for the dense GQA and MLA
+families (port of ``repro/models/transformer.py``).
 
 The trunk is ``cfg.num_blocks`` repeats of a ``cfg.block_period``-layer
 block pattern; block parameters are stacked on a leading axis (the JAX
 package's ``params["blocks"]`` layout, which it ``lax.scan``s) and the
-forward loops over them.  MLA, MoE, SSM and encoder-decoder families raise
-``NotImplementedError`` (ROADMAP queue 1 items 9-12).
+forward loops over them.  MoE, SSM and encoder-decoder families raise
+``NotImplementedError`` (ROADMAP queue 1 items 10-12).
 """
 from __future__ import annotations
 
@@ -15,13 +15,11 @@ from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from . import attention as attn_mod
-from . import layers
+from . import layers, mla
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense GQA family only (so far)."""
-    if cfg.is_mla:
-        raise NotImplementedError("MLA is not ported yet (ROADMAP queue 1 item 9)")
+    """The port serves the dense GQA and MLA families (so far)."""
     if cfg.is_moe:
         raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1 item 10)")
     if cfg.family in ("ssm", "hybrid") or not cfg.has_attention:
@@ -48,9 +46,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     gen = torch.Generator(device=dev).manual_seed(seed)
     kw = {"dtype": dtype, "device": dev}
 
+    make_mixer = mla.make_mla_params if cfg.is_mla else attn_mod.make_attn_params
+
     def layer_params():
         return {"ln1": layers.make_norm_params(cfg, cfg.d_model, dev),
-                "mixer": attn_mod.make_attn_params(gen, cfg, **kw),
+                "mixer": make_mixer(gen, cfg, **kw),
                 "ln2": layers.make_norm_params(cfg, cfg.d_model, dev),
                 "ffn": layers.make_mlp_params(gen, cfg, **kw)}
 
@@ -84,16 +84,24 @@ def apply_layer(cfg: ModelConfig, kind: dict, lp: dict, x: torch.Tensor,
                 positions: torch.Tensor, collect_kv: bool):
     """One layer: pre-norm attention + pre-norm FFN with residuals.
 
-    Returns (x, aux) where aux holds the prefill cache material (k, v).
+    Returns (x, aux) where aux holds the prefill cache material: (k, v), or
+    MLA's latent (c_kv, k_rope).
     """
     aux = {}
     h = layers.apply_norm(cfg, lp["ln1"], x)
-    q, k, v = attn_mod.qkv_proj(cfg, lp["mixer"], h, positions)
-    if collect_kv:
-        aux["kv"] = (k, v)
-    o = ops.attention(q, k, v, causal=True)
-    B, S = h.shape[:2]
-    x = x + o.reshape(B, S, -1) @ lp["mixer"]["wo"]
+    if cfg.is_mla:
+        lat = mla.mla_latent(cfg, lp["mixer"], h, positions)
+        if collect_kv:
+            aux["kv"] = lat
+        x = x + mla.mla_self_attention(cfg, lp["mixer"], h, positions,
+                                       latent=lat)
+    else:
+        q, k, v = attn_mod.qkv_proj(cfg, lp["mixer"], h, positions)
+        if collect_kv:
+            aux["kv"] = (k, v)
+        o = ops.attention(q, k, v, causal=True)
+        B, S = h.shape[:2]
+        x = x + o.reshape(B, S, -1) @ lp["mixer"]["wo"]
     h = layers.apply_norm(cfg, lp["ln2"], x)
     x = x + layers.apply_mlp(cfg, lp["ffn"], h)
     return x, aux
@@ -105,8 +113,9 @@ def forward(cfg: ModelConfig, params: dict, tokens, *,
     """tokens [B, S] -> (logits [B, S, Vp], caches).
 
     ``caches`` (with ``collect_kv``) is a list over the block pattern of
-    ``{"kv": (k, v)}`` with k/v stacked over blocks: [nb, B, S, Hkv, hd],
-    as the JAX scan stacks them; otherwise None.  ``params`` must live on
+    ``{"kv": (k, v)}`` with k/v stacked over blocks: [nb, B, S, Hkv, hd]
+    (MLA: (c_kv [nb, B, S, kvr], k_rope [nb, B, S, dr])), as the JAX scan
+    stacks them; otherwise None.  ``params`` must live on
     ``device``; the tokens are moved there.
     """
     check_supported(cfg)

@@ -33,11 +33,14 @@ keeps every step's logits and records them per request at harvest
 (``step_logits``), for the tolerance check of quantized serving; it is off
 on the hot path.
 
+``backend="dense"`` runs the all-gather baseline of the data plane in place
+of the routed rotations (same tables, same results).  MLA models cache
+their latent in one ``kv_pool`` (``core/dcp.py``).
+
 Not ported yet, each raising ``NotImplementedError`` where the reference
-would act: the dense backend (ROADMAP queue 1 item 4); data-plane copies,
-spill relief, OOM finishes, failure and drain (item 7); MLA, MoE, SSM and
-encoder-decoder models (items 9-12); the prefix cache, admission control
-and prefill cells (item 13).
+would act: data-plane copies, spill relief, OOM finishes, failure and
+drain (ROADMAP queue 1 item 7); MoE, SSM and encoder-decoder models (items
+10-12); the prefix cache, admission control and prefill cells (item 13).
 """
 from __future__ import annotations
 
@@ -103,8 +106,6 @@ class NanoCPEngine:
         are float32, as the reference engine allocates them, or fp8/int8
         codes with per-page scales for ``kv_dtype`` "fp8"/"int8"."""
         transformer.check_supported(cfg)
-        if backend != "routed":
-            raise _not_ported(f"backend {backend!r}", 4)
         quant.check_kv_dtype(kv_dtype)
         if admission is not None:
             raise _not_ported("SLO admission control", 13)
@@ -265,17 +266,21 @@ class NanoCPEngine:
                                                  collect_kv=True,
                                                  device=self.device)
             firsts.append(logits[0, -1].argmax())
-            # [nb, na, T, Hkv, hd] -> khs groups of kg heads (flattened)
-            k3 = torch.stack([c["kv"][0][:, 0] for c in caches], dim=1)
-            v3 = torch.stack([c["kv"][1][:, 0] for c in caches], dim=1)
-            kv_k.append(k3.reshape(*k3.shape[:3], khs, -1))
-            kv_v.append(v3.reshape(*v3.shape[:3], khs, -1))
+            a = torch.stack([c["kv"][0][:, 0] for c in caches], dim=1)
+            b = torch.stack([c["kv"][1][:, 0] for c in caches], dim=1)
+            if self.cfg.is_mla:
+                # [nb, na, T, 1, kvr + dr]: MLA's single latent "head"
+                kv_k.append(torch.cat([a, b], dim=-1)[..., None, :])
+            else:
+                # [nb, na, T, Hkv, hd] -> khs groups of kg heads (flattened)
+                kv_k.append(a.reshape(*a.shape[:3], khs, -1))
+                kv_v.append(b.reshape(*b.shape[:3], khs, -1))
             kv_coords.append(migrate.prefill_coords(self.cluster, req.rid,
                                                     page, ps))
         eos_done = self._record_first_tokens(
             reqs, torch.stack(firsts).tolist(), now)
         self._scatter.scatter_kv(self.state, torch.cat(kv_k, dim=2),
-                                 torch.cat(kv_v, dim=2),
+                                 torch.cat(kv_v, dim=2) if kv_v else None,
                                  np.concatenate(kv_coords, axis=1))
         return self._finish_prefill_eos(eos_done, now)
 

@@ -2,7 +2,9 @@
 versions on the card, on wider grids than ``chip_smoke.py`` covers: head
 dims that are not powers of two up to 256, Dk != Dv, several page sizes
 and G, ragged Sq/Skv, ``kv_len`` and ``q_offset``, float32 and bfloat16
-queries, and fp8 / int8 quantized pages with per-page scales.
+queries, and fp8 / int8 quantized pages with per-page scales; and MLA's
+shapes at MiniCPM3-4B's width (paged decode over the 288-wide latent with
+G = 40 and v = k[..., :256]; flash prefill at Dk 96 / Dv 64 / 40 heads).
 
 These tests need an NVIDIA GPU and ``nvcc`` (marker ``cuda``); without a
 card they skip.  Run them on the card with
@@ -192,8 +194,8 @@ def test_ops_send_cuda_tensors_to_kernels():
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    q = torch.randn(2, 8, 300, device="cuda")
-    kp = torch.randn(4, 16, 2, 300, device="cuda")
+    q = torch.randn(2, 8, 400, device="cuda")
+    kp = torch.randn(4, 16, 2, 400, device="cuda")
     bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
     ln = torch.ones(2, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
@@ -404,3 +406,79 @@ def test_flash_row_without_keys(dtype):
     assert (o[0] == 0).all() and (l[0] == -1e30).all()
     _close(o[1:], o2, dtype)
     torch.testing.assert_close(l[1:], l2, atol=1e-4, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# MLA at MiniCPM3-4B's width: one latent head of kv_lora 256 + rope 32
+# --------------------------------------------------------------------------- #
+MLA_G, MLA_DK, MLA_DV = 40, 288, 256
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "fp8", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_mla_latent_vs_plain(dtype, kv_dtype):
+    """G = 40 q heads over one latent head of 288, v = k[..., :256] (a view,
+    never copied; quantized pools pass one scale per page for both), the
+    scale (nope + rope)^-0.5 of the decode step.  Rows of length 0, one
+    token, one full page, on and one past a split boundary, and spanning
+    every split."""
+    N, page, MB, P = 24, 16, 20, 128
+    pps = _pps(N, 1, MB)
+    assert -(-MB // pps) > 1
+    g = torch.Generator(device="cuda").manual_seed(288)
+    q = torch.randn(N, MLA_G, MLA_DK, device="cuda", generator=g).to(dtype)
+    kw = {}
+    if kv_dtype:
+        k, ks = _quantized_pages(P, page, 1, MLA_DK, kv_dtype, g)
+        kw = {"k_scale": ks, "v_scale": ks}
+    else:
+        k = torch.randn(P, page, 1, MLA_DK, device="cuda", generator=g).to(dtype)
+    v = k[..., :MLA_DV]
+    bt = torch.randint(0, P, (N, MB), device="cuda", generator=g,
+                       dtype=torch.int32)
+    ln = torch.randint(1, MB * page + 1, (N,), device="cuda", generator=g,
+                       dtype=torch.int32)
+    edge = [0, 1, page, pps * page, pps * page + 1, MB * page, 0, 2 * page]
+    ln[:len(edge)] = torch.tensor(edge, dtype=torch.int32, device="cuda")
+    scale = (64 + 32) ** -0.5
+    torch.cuda.synchronize()
+    a0 = _allocations()
+    o, l = pa.paged_decode_attention(q, k, v, bt, ln, scale=scale, **kw)
+    assert _allocations() - a0 == 3           # out, lse, split scratch
+    o2, l2 = ref.paged_decode_attention(q, k, v.contiguous(), bt, ln,
+                                        scale=scale, **kw)
+    torch.cuda.synchronize()
+    assert o.shape == (N, MLA_G, MLA_DV)
+    _close(o, o2, dtype)
+    torch.testing.assert_close(l, l2, atol=1e-4, rtol=1e-4)
+    assert (o[ln == 0] == 0).all() and (l[ln == 0] == -1e30).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_mla_latent_one_page_rows(dtype):
+    """MB = 1 at the latent's width: one split, no scratch."""
+    N, page = 6, 16
+    g = torch.Generator(device="cuda").manual_seed(289)
+    q = torch.randn(N, MLA_G, MLA_DK, device="cuda", generator=g).to(dtype)
+    k = torch.randn(32, page, 1, MLA_DK, device="cuda", generator=g).to(dtype)
+    bt = torch.randint(0, 32, (N, 1), device="cuda", generator=g,
+                       dtype=torch.int32)
+    ln = torch.tensor([16, 0, 1, 7, 15, 16], dtype=torch.int32, device="cuda")
+    o, l = pa.paged_decode_attention(q, k, k[..., :MLA_DV], bt, ln)
+    o2, l2 = ref.paged_decode_attention(q, k, k[..., :MLA_DV].contiguous(),
+                                        bt, ln)
+    torch.cuda.synchronize()
+    _close(o, o2, dtype)
+    torch.testing.assert_close(l, l2, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,kv_len", [(1, 77, None), (2, 333, [333, 150]),
+                                        (1, 1000, None)])
+def test_flash_mla_prefill_shape(B, S, kv_len, dtype):
+    """MLA's materialised prefill: 40 heads, Dk 96 (nope 64 + rope 32) !=
+    Dv 64, causal, at ragged lengths off the tiles."""
+    _flash_case(B, S, S, 40, 40, 96, 64, dtype, kv_len, 0, True, seed=S)

@@ -1,6 +1,6 @@
 """The port's DCP decode step on its virtual mesh, held against the JAX
 package (a port of tests/integration/dcp_equivalence.py for the dense GQA
-archetype, on the CPU).
+and MLA archetypes, routed and dense backends, on the CPU).
 
 Weights come from the JAX init (cast to float32) through
 ``repro_torch.params``; prompts are drawn with numpy.  Per-step tokens must
@@ -38,10 +38,10 @@ PROMPTS = {0: 50, 1: 130, 2: 40, 3: 260, 4: 64}
 STEPS = 3
 
 
-def _models(kv=None):
+def _models(kv=None, arch="tinyllama-1.1b"):
     over = {} if kv is None else {"num_kv_heads": kv}
-    jcfg = jreduced(JCONFIGS["tinyllama-1.1b"], vocab_size=256, **over)
-    cfg = reduced(CONFIGS["tinyllama-1.1b"], vocab_size=256, **over)
+    jcfg = jreduced(JCONFIGS[arch], vocab_size=256, **over)
+    cfg = reduced(CONFIGS[arch], vocab_size=256, **over)
     jparams = jax.tree.map(lambda x: x.astype(jnp.float32),
                            jinit(jax.random.PRNGKey(0), jcfg))
     params = P.from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
@@ -49,17 +49,42 @@ def _models(kv=None):
 
 
 def _kv_layers(caches):
-    """Per attention layer (k [len, Hkv, hd], v) numpy, block-major."""
+    """Per attention layer (k [len, Hkv, hd], v) — MLA: (c_kv [len, kvr],
+    k_rope [len, dr]) — numpy, block-major."""
     k, v = caches[0]["kv"]
     return [(k[b, 0].numpy(), v[b, 0].numpy()) for b in range(k.shape[0])]
 
 
-@pytest.mark.parametrize("I,TP,kv", [(4, 2, None), (2, 4, None), (2, 2, 4)],
-                         ids=["4x2", "2x4-striped", "2x2-kv4-grouped"])
-def test_dcp_decode_equals_reference(I, TP, kv):
-    jcfg, jparams, cfg, params = _models(kv)
+def _scatter_prefill(cfg, scatter, state, caches, coords, khs):
+    """One request's prefill KV through ``PrefillScatter`` as the engine
+    hands it over: [nb, 1, T, khs, kg*hd] k and v, or MLA's latent
+    [nb, 1, T, 1, kvr + dr] alone."""
+    a = caches[0]["kv"][0][:, 0][:, None]
+    b = caches[0]["kv"][1][:, 0][:, None]
+    if cfg.is_mla:
+        return scatter.scatter_kv(state, torch.cat([a, b], -1)[..., None, :],
+                                  None, coords)
+    return scatter.scatter_kv(state, a.reshape(*a.shape[:3], khs, -1),
+                              b.reshape(*b.shape[:3], khs, -1), coords)
+
+
+@pytest.mark.parametrize(
+    "I,TP,kv,arch,backend",
+    [(4, 2, None, "tinyllama-1.1b", "routed"),
+     (2, 4, None, "tinyllama-1.1b", "routed"),
+     (2, 2, 4, "tinyllama-1.1b", "routed"),
+     (4, 2, None, "minicpm3-4b", "routed"),
+     (2, 4, None, "minicpm3-4b", "routed"),
+     (4, 2, None, "tinyllama-1.1b", "dense"),
+     (2, 4, None, "minicpm3-4b", "dense")],
+    ids=["4x2", "2x4-striped", "2x2-kv4-grouped", "minicpm3-4x2",
+         "minicpm3-2x4", "4x2-dense", "minicpm3-2x4-dense"])
+def test_dcp_decode_equals_reference(I, TP, kv, arch, backend):
+    jcfg, jparams, cfg, params = _models(kv, arch)
     _, khs, ps = dcp.attn_tp_geometry(cfg, TP)
-    if (I, TP) == (2, 4):
+    if cfg.is_mla:
+        assert (khs, ps) == (1, TP)          # the latent stripes over all tp
+    elif (I, TP) == (2, 4):
         assert ps == 2                       # page striping is exercised
     if kv == 4:
         assert dcp.kv_group_size(cfg, TP) == 2   # head grouping is exercised
@@ -79,7 +104,7 @@ def test_dcp_decode_equals_reference(I, TP, kv):
 
     dims0 = dcp.DecodeDims(M=2, S=2, N=2 + 3 * 2, MB=0, W=I,
                            num_frames=cluster.page_table.frames_per_instance + 1,
-                           page=PAGE, data_size=I, tp=TP)
+                           page=PAGE, data_size=I, tp=TP, backend=backend)
     state = dcp.init_serve_state(cfg, dims0, I, dtype=torch.float32,
                                  device="cpu")
     state_np = {k: np.zeros(v.shape, np.float32) for k, v in state.items()}
@@ -99,11 +124,8 @@ def test_dcp_decode_equals_reference(I, TP, kv):
         migrate.load_prefill_kv(cfg, cluster, dims0, state_np, r, kv_layers)
         jmigrate.load_prefill_kv(jcfg, cluster, jdims0, state_jax_loader, r,
                                  kv_layers)
-        k3 = caches[0]["kv"][0][:, 0][:, None]           # [nb, 1, T, Hkv, hd]
-        v3 = caches[0]["kv"][1][:, 0][:, None]
-        scatter.scatter_kv(state, k3.reshape(*k3.shape[:3], khs, -1),
-                           v3.reshape(*v3.shape[:3], khs, -1),
-                           migrate.prefill_coords(cluster, r, PAGE, ps))
+        _scatter_prefill(cfg, scatter, state, caches,
+                         migrate.prefill_coords(cluster, r, PAGE, ps), khs)
     for name in state:
         np.testing.assert_array_equal(state[name].numpy(), state_np[name])
         np.testing.assert_array_equal(state_np[name], state_jax_loader[name])
@@ -119,7 +141,8 @@ def test_dcp_decode_equals_reference(I, TP, kv):
                                  append_tokens=True, next_tokens=next_tok)
         d = dcp.DecodeDims(M=tbl.M, S=tbl.S, N=tbl.N, MB=tbl.MB, MBT=tbl.MBT,
                            W=I, num_frames=dims0.num_frames, page=PAGE,
-                           data_size=I, tp=TP)
+                           data_size=I, tp=TP, backend=backend)
+        assert d.num_rounds > 0              # both backends route q rows
         state, toks, _ = dcp.build_decode_step(cfg, d)(
             dparams, state, routing.as_device_arrays(tbl, dev_tables))
         for r in PROMPTS:
@@ -155,11 +178,11 @@ def _bytes(t: torch.Tensor) -> np.ndarray:
     return t.contiguous().view(torch.uint8).numpy().copy()
 
 
-def _quant_port_run(kv_dtype: str, I: int, TP: int) -> dict:
+def _quant_port_run(kv_dtype: str, I: int, TP: int, arch: str) -> dict:
     """The port's prefill, quantized scatter and QUANT_STEPS decode steps;
     records each step's tables, the state before and after it (pools as
     raw bytes) and its logits."""
-    _, jparams, cfg, params = _models()
+    _, jparams, cfg, params = _models(arch=arch)
     _, khs, ps = dcp.attn_tp_geometry(cfg, TP)
     cluster = ClusterState(num_instances=I, instances_per_node=I,
                            kv_capacity_tokens=2048, page_size=PAGE,
@@ -184,17 +207,14 @@ def _quant_port_run(kv_dtype: str, I: int, TP: int) -> dict:
                                              torch.as_tensor(toks)[None],
                                              collect_kv=True, device="cpu")
         next_tok[r] = int(logits[0, -1].argmax())
-        k3 = caches[0]["kv"][0][:, 0][:, None]
-        v3 = caches[0]["kv"][1][:, 0][:, None]
-        scatter.scatter_kv(state, k3.reshape(*k3.shape[:3], khs, -1),
-                           v3.reshape(*v3.shape[:3], khs, -1),
-                           migrate.prefill_coords(cluster, r, PAGE, ps))
+        _scatter_prefill(cfg, scatter, state, caches,
+                         migrate.prefill_coords(cluster, r, PAGE, ps), khs)
     dparams = dcp.to_decode_params(cfg, params, TP)
     dev_tables = routing.DeviceTables("cpu")
     buckets = ShapeBuckets(m_buckets=(1, 2, 4, 8), s_buckets=(0, 1, 2, 4, 8),
                            window=I)
     rec = {"meta": np.array([I, TP, nf, QUANT_STEPS, PAGE]),
-           "kv_dtype": np.array(kv_dtype)}
+           "kv_dtype": np.array(kv_dtype), "arch": np.array(arch)}
     for i, leaf in enumerate(jax.tree.leaves(jparams)):
         rec[f"param/{i}"] = np.asarray(leaf)
     for t in range(QUANT_STEPS):
@@ -238,7 +258,8 @@ from repro.models import init_params
 rec = dict(np.load(sys.argv[1]))
 I, TP, nf, steps, page = (int(x) for x in rec["meta"])
 kv_dtype = str(rec["kv_dtype"])
-cfg = reduced(CONFIGS["tinyllama-1.1b"], vocab_size=256)
+cfg = reduced(CONFIGS[str(rec["arch"])], vocab_size=256)
+keys = [k[len("0/pre/"):] for k in rec if k.startswith("0/pre/")]
 tree = jax.tree.structure(jax.eval_shape(
     lambda: init_params(jax.random.PRNGKey(0), cfg)))
 params = jax.tree.unflatten(tree, [jnp.asarray(rec[f"param/{i}"])
@@ -254,7 +275,7 @@ for t in range(steps):
                        page=page, data_size=I, tp=TP, kv_dtype=kv_dtype)
     state = {k: jnp.asarray(rec[f"{t}/pre/{k}"].view(
                  code_dt if "pool" in k else np.float32))
-             for k in ("k_pool", "v_pool", "k_scale", "v_scale")}
+             for k in keys}
     tbl = {k.split("/")[-1]: jnp.asarray(v) for k, v in rec.items()
            if k.startswith(f"{t}/tbl/")}
     if key not in fns:
@@ -278,9 +299,12 @@ def _code_step(codes: np.ndarray, kv_dtype: str) -> np.ndarray:
     return 2.0 ** (e - 3)
 
 
-@pytest.mark.parametrize("kv_dtype,I,TP", [("fp8", 4, 2), ("int8", 2, 2)],
-                         ids=["fp8-4x2", "int8-2x2"])
-def test_dcp_quantized_step_matches_jax(kv_dtype, I, TP, tmp_path):
+@pytest.mark.parametrize("kv_dtype,I,TP,arch",
+                         [("fp8", 4, 2, "tinyllama-1.1b"),
+                          ("int8", 2, 2, "tinyllama-1.1b"),
+                          ("fp8", 2, 4, "minicpm3-4b")],
+                         ids=["fp8-4x2", "int8-2x2", "fp8-minicpm3-2x4"])
+def test_dcp_quantized_step_matches_jax(kv_dtype, I, TP, arch, tmp_path):
     """Both steps from the same quantized pools and tables, every step:
 
       * scales bit-equal, except a page an offset-0 append set from this
@@ -294,8 +318,12 @@ def test_dcp_quantized_step_matches_jax(kv_dtype, I, TP, tmp_path):
 
     The JAX step needs I*TP devices, so it runs in a subprocess with forced
     host devices.  Scratch frames (last of each sub-pool) take repeated
-    writes in either order and are not compared."""
-    rec = _quant_port_run(kv_dtype, I, TP)
+    writes in either order and are not compared.  MLA's one latent pool
+    and its ``kv_scale`` are striped over every tp device."""
+    rec = _quant_port_run(kv_dtype, I, TP, arch)
+    cfg = reduced(CONFIGS[arch], vocab_size=256)
+    _, khs, ps = dcp.attn_tp_geometry(cfg, TP)
+    kinds = ("kv",) if cfg.is_mla else ("k", "v")
     f_in, f_out = tmp_path / "port.npz", tmp_path / "jax.npz"
     np.savez(f_in, **rec)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
@@ -312,14 +340,17 @@ def test_dcp_quantized_step_matches_jax(kv_dtype, I, TP, tmp_path):
         assert np.max(np.abs(lg_p - lg_j)) <= STEP_LOGIT_TOL, t
         act = rec[f"{t}/tbl/slot_active"] != 0
         af, ao = rec[f"{t}/tbl/append_frame"], rec[f"{t}/tbl/append_off"]
-        for kind in ("k", "v"):
+        for kind in kinds:
             sp = rec[f"{t}/post/{kind}_scale"].view(np.float32)[..., :-1]
             sj = jout[f"{t}/post/{kind}_scale"].view(np.float32)[..., :-1]
             fresh = np.zeros(sp.shape[2:], bool)        # [I, tp, F'-1]
             appended = np.zeros(sp.shape[2:] + (PAGE,), bool)
             for i, b in zip(*np.nonzero(act)):
-                appended[i, :, af[i, b], ao[i, b]] = True
-                fresh[i, :, af[i, b]] |= ao[i, b] == 0
+                # the append's sub-pool chunks and local frame
+                f, o = af[i, b], ao[i, b]
+                for c in (f % ps) * khs + np.arange(khs):
+                    appended[i, c, f // ps, o] = True
+                    fresh[i, c, f // ps] |= o == 0
             same = sp == sj
             assert same[:, :, ~fresh].all(), (t, kind)
             np.testing.assert_allclose(sp, sj, rtol=1e-5, atol=0)

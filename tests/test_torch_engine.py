@@ -29,9 +29,9 @@ PROMPT_LENS = (50, 300, 120, 40, 200)
 NEW_TOKENS = 5
 
 
-def _models(**over):
-    jcfg = jreduced(JCONFIGS["tinyllama-1.1b"], num_layers=2, **over)
-    cfg = reduced(CONFIGS["tinyllama-1.1b"], num_layers=2, **over)
+def _models(arch="tinyllama-1.1b", **over):
+    jcfg = jreduced(JCONFIGS[arch], num_layers=2, **over)
+    cfg = reduced(CONFIGS[arch], num_layers=2, **over)
     jparams = jax.tree.map(lambda x: x.astype(jnp.float32),
                            jinit(jax.random.PRNGKey(0), jcfg))
     params = P.from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
@@ -124,6 +124,98 @@ def test_engine_step_timings_and_bucket(generation):
                                "harvest_us", "tables_us", "dispatch_us",
                                "step_us"}
     assert eng.iterations == eng.hot_path_stats["steps"]
+
+
+# --------------------------------------------------------------------------- #
+# MLA (reduced minicpm3, decode Dk 40 / Dv 32): the same traffic at (4, 2),
+# and the reference's ``mla`` escalation cell (engine_escalation.py)
+# --------------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def mla_generation():
+    jcfg, jparams, cfg, params = _models("minicpm3-4b", vocab_size=256)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, (L,)) for L in PROMPT_LENS]
+    runs = {}
+    for pipeline in (True, False):
+        eng = NanoCPEngine(cfg, params, num_instances=4, instances_per_node=4,
+                           kv_capacity_tokens=2048, page_size=16, tp=2,
+                           buckets=CPBuckets(edges=(100, 256),
+                                             degrees=(1, 2, 3)),
+                           shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4),
+                                                      s_buckets=(0, 1, 2, 4),
+                                                      window=4),
+                           pipeline=pipeline, audit_donation_every_step=True,
+                           device="cpu")
+        ptrs = _pool_ptrs(eng)
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=NEW_TOKENS)
+        eng.run(max_iters=30)
+        runs[pipeline] = (eng, ptrs)
+    ref = {rid: _jax_argmax(jcfg, jparams, prompts[rid], r.tokens)
+           for rid, r in runs[True][0].results.items()}
+    return prompts, runs, ref
+
+
+@pytest.mark.parametrize("pipeline", [True, False],
+                         ids=["pipelined", "non-pipelined"])
+def test_mla_engine_transcripts_equal_jax_greedy(mla_generation, pipeline):
+    """MLA serving through the engine: the latent pool (one ``kv_pool``
+    striped over both tp devices) is filled by the prefill scatter, grows
+    by the step's appends in place, and the transcripts equal greedy JAX
+    ``transformer.forward``."""
+    prompts, runs, ref = mla_generation
+    eng, ptrs = runs[pipeline]
+    assert set(eng.state) == {"kv_pool"}
+    assert eng.state["kv_pool"].shape[-1] == 40           # kvr 32 + rope 8
+    assert sorted(eng.results) == list(range(len(prompts)))
+    for rid, res in eng.results.items():
+        assert len(res.tokens) == NEW_TOKENS, (rid, res.tokens)
+        assert res.tokens == ref[rid], (pipeline, rid, res.tokens, ref[rid])
+    assert not eng.pending and len(eng.finished) == len(prompts)
+    assert _pool_ptrs(eng) == ptrs
+    assert eng.aot.stats.donation_copies == 0
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "fp8"], ids=["f32", "fp8"])
+def test_mla_escalation_moves_latent_and_equals_greedy(kv_dtype):
+    """The reference's ``mla`` escalation mode: (2, 2), one 40-token prompt
+    decoding 24 tokens across the CP bucket edge at 48; the live re-shard
+    moves the latent (and its scales, for fp8 pools).  Float pools must
+    stay equal to greedy; fp8 ones must keep the first token and stay
+    within the quantized contract's logit bound (1.5)."""
+    jcfg, jparams, cfg, params = _models("minicpm3-4b", vocab_size=256)
+    eng = NanoCPEngine(cfg, params, num_instances=2, instances_per_node=2,
+                       kv_capacity_tokens=4096, page_size=16, tp=2,
+                       buckets=CPBuckets(edges=(48,), degrees=(1, 2)),
+                       shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4),
+                                                  s_buckets=(0, 1, 2, 4),
+                                                  window=2),
+                       max_slots_per_instance=4, kv_dtype=kv_dtype,
+                       keep_logits=True, audit_donation_every_step=True,
+                       device="cpu")
+    prompt = np.random.default_rng(0).integers(0, 256, (40,))
+    rid = eng.add_request(prompt, max_new_tokens=24)
+    eng.step()
+    assert eng.cluster.active[rid].cp_degree == 1, "must admit un-escalated"
+    ptrs = _pool_ptrs(eng)
+    eng.run(max_iters=60)
+    hp = eng.hot_path_stats
+    assert hp["escalations"] >= 1 and hp["reshard_tokens"] > 0, hp
+    assert len(eng.finished[0].kv_binding) == 2
+    assert _pool_ptrs(eng) == ptrs and eng.aot.stats.donation_copies == 0
+    toks = eng.results[rid].tokens
+    assert len(toks) == 24
+    ref = _jax_argmax(jcfg, jparams, prompt, toks)
+    if kv_dtype == "bf16":
+        assert toks == ref, (toks, ref)
+        return
+    assert set(eng.state) == {"kv_pool", "kv_scale"}
+    assert toks[0] == ref[0]
+    seq = np.concatenate([prompt, np.asarray(toks[:-1], np.int64)])
+    lj, _ = jtransformer.forward(jcfg, jparams, jnp.asarray(seq)[None])
+    ref_lg = np.asarray(lj[0, len(prompt):, :cfg.vocab_size])
+    got = np.stack(eng.step_logits[rid])[:, :cfg.vocab_size]
+    assert np.abs(got - ref_lg).max() <= 1.5
 
 
 # --------------------------------------------------------------------------- #

@@ -93,13 +93,14 @@ def test_unported_paths_raise_not_implemented():
                                      dtype=torch.float32)
     kw = dict(num_instances=1, instances_per_node=1, kv_capacity_tokens=128,
               tp=1, device="cpu")
-    for extra, item in ((dict(backend="dense"), "item 4"),
-                        (dict(prefix_cache=True), "item 13"),
+    for extra, item in ((dict(prefix_cache=True), "item 13"),
                         (dict(prefill_cells=1), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             NanoCPEngine(cfg, params, **kw, **extra)
     with pytest.raises(ValueError, match="kv_dtype"):
         NanoCPEngine(cfg, params, **kw, kv_dtype="fp16")
+    with pytest.raises(ValueError, match="backend"):
+        NanoCPEngine(cfg, params, **kw, backend="nccl")
     eng = NanoCPEngine(cfg, params, **kw)
     for call, item in ((lambda: eng.add_audio_request(None, []), "item 12"),
                        (lambda: eng.drain_instance(0), "item 7"),
@@ -113,3 +114,34 @@ def test_unported_paths_raise_not_implemented():
         transformer.init_params(reduced(CONFIGS["tinyllama-1.1b"],
                                         num_experts=4, num_experts_per_tok=2),
                                 device="cpu")
+
+
+
+@pytest.mark.parametrize("arch,backend", [("minicpm3-4b", "routed"),
+                                          ("minicpm3-4b", "dense"),
+                                          ("tinyllama-1.1b", "dense")])
+def test_mla_and_dense_backend_serve_on_cpu(arch, backend):
+    """MLA and the dense all-gather backend are ported: the port's own
+    random init serves two requests across a (2, 2) mesh on the CPU, and
+    the dense backend returns the routed backend's tokens."""
+    from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.core.bucketing import CPBuckets
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import NanoCPEngine
+
+    cfg = reduced(CONFIGS[arch], num_layers=2, vocab_size=128)
+    params = transformer.init_params(cfg, seed=0, device="cpu",
+                                     dtype=torch.float32)
+    prompts = [np.arange(70) % 128, np.arange(9, 30)]
+    out = {}
+    for be in {"routed", backend}:
+        eng = NanoCPEngine(cfg, params, num_instances=2, instances_per_node=2,
+                           kv_capacity_tokens=512, tp=2, backend=be,
+                           buckets=CPBuckets(edges=(64,), degrees=(1, 2)),
+                           device="cpu")
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=4)
+        out[be] = {r: g.tokens for r, g in eng.run(max_iters=20).items()}
+        assert all(len(t) == 4 for t in out[be].values())
+        assert ("kv_pool" in eng.state) == cfg.is_mla
+    assert out[backend] == out["routed"]
