@@ -44,8 +44,18 @@ Phases, each printing one JSON line:
   7. dense   — the main path's traffic with the dense all-gather backend
                (``backend="dense"``) beside a routed twin run, both keeping
                their step logits: the tokens must be equal, the logits
-               within 1e-4.  The TinyLlama weights are then freed.
-  8. mla     — full-width MiniCPM3-4B (62 layers, random float32 weights,
+               within 1e-4.
+  8. spill   — TinyLlama on a (2, 2) mesh with a pool of a few pages per
+               instance: the scheduler's own escalation off, so decode
+               growth spills at table lowering and the engine's spill
+               relief escalates the KV (``spill_escalations`` >= 1, tokens
+               equal greedy); then a pool the whole node outgrows: a
+               request-level OOM finish (``GenResult.oom``, tokens a prefix
+               of greedy).  Then the main path's traffic at (4, 2) with one
+               ``drain_instance`` and one ``compact`` mid-run (transcripts
+               equal greedy, both counted).  The TinyLlama weights are then
+               freed.
+  9. mla     — full-width MiniCPM3-4B (62 layers, random float32 weights,
                seed 0) through the engine: the main path's traffic at
                (I=4, TP=2) pipelined and not, at (2, 4) pipelined; fp8 and
                int8 latent pools at (4, 2) under the tolerance contract; the
@@ -55,15 +65,28 @@ Phases, each printing one JSON line:
                at (4, 2), and the paged kernel re-checked and re-timed on
                the largest call the float32 and fp8 runs made (f32 and
                bf16 q), its bound counting the latent row once (v is the
-               view k[..., :256] of the same bytes).
-  9. summary — ``{"kernels": [...]}``, then the last line
+               view k[..., :256] of the same bytes).  Its weights are then
+               freed.
+ 10. moe     — full-width Phi-3.5-MoE (8 of 32 layers, 16 experts top-2 of
+               expert d_ff 6400, random float32 weights, seed 0, capacity
+               factor 8.0: no token dropped) through the engine: the main
+               path's traffic at (4, 2) pipelined and not and at (2, 4)
+               pipelined, checked teacher-forced as in phase 3, with the
+               rows per MoE binding (B_s) and the capacity C of every step.
+               Then the profile of phase 4 at (4, 2), with the device time
+               of the expert ``bmm``s, of the all-to-all index ops
+               (dispatch and combine) and of routing, and the paged kernel
+               re-checked and re-timed on the largest call the runs made.
+ 11. summary — ``{"kernels": [...]}``, then the last line
                ``{"ok": true, "device": {...}}``.
 
 The kernel phase also holds the paged kernel at MLA's latent shape (G 40
 q heads over one latent head of Dk 288, Dv 256 as a view; f32/bf16 q,
 f32/bf16/fp8/int8 pages; edge rows with zero-length rows, MB = 1 and a
 split boundary) and flash at MLA's prefill shape (40 heads, Dk 96, Dv 64,
-S 2000).
+S 2000); and both at Phi-3.5-MoE's head of 128 (paged G 4 over 4 kv heads
+per device; flash 32 q / 8 kv heads, S 2000, timed; edge rows with split
+boundaries, fp8 pages and ragged tails).
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
 without the repository's ``src/`` beside it, the script fails.
@@ -76,6 +99,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -87,11 +111,13 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import moe_parallel  # noqa: E402
 from repro_torch.core.bucketing import CPBuckets, ShapeBuckets  # noqa: E402
+from repro_torch.core.scheduler import DualBalancedScheduler  # noqa: E402
 from repro_torch.kernels import build, quant, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.serving.engine import NanoCPEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, and the peak
@@ -114,6 +140,10 @@ LOGIT_TOL = {"fp8": 1.5, "int8": 0.5}
 CAPTURE_STEPS = 4     # steps whose paged calls are inspected (they sync)
 GAP_TOL = 1e-4        # teacher-forced argmax ties tolerated below this gap
 PROFILE_STEPS = 5
+# Phi-3.5-MoE on one 80 GB card: 8 of its 32 layers (a layer is 1.30e9
+# float32 parameters, 5.2 GB), capacity factor 8 so that no token drops
+PHI_LAYERS = 8
+PHI_CAPACITY_FACTOR = 8.0
 SHIELD_CYCLES = 4_000_000   # about 2 ms of device spin at the H100's clocks
 
 
@@ -185,13 +215,14 @@ def check_close(name, got, want, dtype) -> float:
 # --------------------------------------------------------------------------- #
 # phase 2: kernels vs plain versions
 # --------------------------------------------------------------------------- #
-def paged_inputs(dtype, gen):
+def paged_inputs(dtype, gen, kg: int = 2, hd: int = 64, G: int = 8):
     """The main path's paged call: TinyLlama at (I=4, TP=2) — every virtual
     device's rows in one launch, pools flattened to I*tp*F' pages of 16
     tokens, kg = 2 kv heads of hd 64 per device, G = 8 q heads per kv head;
     shard lengths up to ~700 tokens (a 2000-token prompt over three
-    instances) and zero-length padding rows."""
-    I, tp, Fp, page, kg, hd, G = 4, 2, 257, 16, 2, 64, 8
+    instances) and zero-length padding rows.  Phi-3.5-MoE's call at the
+    same mesh has kg = 4 kv heads of hd 128 and G = 4."""
+    I, tp, Fp, page = 4, 2, 257, 16
     rows, MB = 64, 44
     P = I * tp * Fp
     q = torch.randn(rows, kg * G, hd, device=DEV, generator=gen).to(dtype)
@@ -287,15 +318,16 @@ def paged_variant(k, v=None) -> str:
                                    torch.int8: "_int8"}.get(k.dtype, "")
 
 
-def paged_row(args, dtype, label: str, scale=None) -> dict:
+def paged_row(args, dtype, label: str, scale=None, name=None) -> dict:
     """Hold the paged kernel against its plain version on ``args`` (q, k, v,
     block tables, lengths[, k_scale, v_scale]) and time both; returns the
-    phase's JSON row.  ``dtype`` is q's type, which sets the tolerance."""
+    phase's JSON row.  ``dtype`` is q's type, which sets the tolerance;
+    ``name`` overrides the variant's summary name."""
     dn = str(dtype).replace("torch.", "")
     q, k, v, bt, lengths = args[:5]
     kw = {} if len(args) == 5 else {"k_scale": args[5], "v_scale": args[6]}
     kw["scale"] = scale
-    name = paged_variant(k, v)
+    name = name or paged_variant(k, v)
     o, l = pa.paged_decode_attention(q, k, v, bt, lengths, **kw)
     o2, l2 = ref.paged_decode_attention(q, k, v, bt, lengths, **kw)
     torch.cuda.synchronize()
@@ -394,6 +426,12 @@ def run_kernel_phase(gen) -> dict:
         v = torch.randn(1, 2000, 40, 64, device=DEV, generator=gen).to(dtype)
         summary.setdefault("flash_fwd_mla", []).append(
             flash_row("flash_fwd_mla", q, k, v, None, 0, timed=True))
+        # --- Phi-3.5-MoE's prefill attention: 32 q / 8 kv heads of 128 ---
+        q = torch.randn(1, 2000, 32, 128, device=DEV, generator=gen).to(dtype)
+        k = torch.randn(1, 2000, 8, 128, device=DEV, generator=gen).to(dtype)
+        v = torch.randn(1, 2000, 8, 128, device=DEV, generator=gen).to(dtype)
+        summary.setdefault("flash_fwd_moe", []).append(
+            flash_row("flash_fwd_moe", q, k, v, None, 0, timed=True))
     run_edge_checks(gen)
     return summary
 
@@ -409,16 +447,16 @@ def edge_row(name: str, case: str, dtype, got, want) -> None:
 
 
 def flash_edge(gen, dtype, B, Sq, Skv, Dk, Dv, kv_len=None, q_offset=0,
-               causal=True) -> None:
-    """One flash edge case at 32 q / 4 kv heads."""
+               causal=True, Hkv=4) -> None:
+    """One flash edge case at 32 q / ``Hkv`` kv heads."""
     q = torch.randn(B, Sq, 32, Dk, device=DEV, generator=gen).to(dtype)
-    k = torch.randn(B, Skv, 4, Dk, device=DEV, generator=gen).to(dtype)
-    v = torch.randn(B, Skv, 4, Dv, device=DEV, generator=gen).to(dtype)
+    k = torch.randn(B, Skv, Hkv, Dk, device=DEV, generator=gen).to(dtype)
+    v = torch.randn(B, Skv, Hkv, Dv, device=DEV, generator=gen).to(dtype)
     kl = (None if kv_len is None
           else torch.tensor(kv_len, dtype=torch.int32, device=DEV))
     kw = dict(causal=causal, kv_len=kl, q_offset=q_offset)
-    edge_row("flash_fwd", f"B {B} Sq {Sq} Skv {Skv} Dk {Dk} Dv {Dv} kv_len "
-             f"{kv_len} q_offset {q_offset} causal {causal}", dtype,
+    edge_row("flash_fwd", f"B {B} Sq {Sq} Skv {Skv} Hkv {Hkv} Dk {Dk} Dv {Dv} "
+             f"kv_len {kv_len} q_offset {q_offset} causal {causal}", dtype,
              fa.flash_attention(q, k, v, **kw), ref.flash_attention(q, k, v, **kw))
 
 
@@ -432,8 +470,12 @@ def run_edge_checks(gen) -> None:
     Sq/Skv one off the 64-row tiles, kv_len inside one tile, bf16 head dims
     16-256, and Dk != Dv."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, bt, lengths = paged_inputs(dtype, gen)
+
+    def split_edges(args, label, kvs):
+        """Rows on, one past and two splits past a split boundary, full
+        rows between empty ones, and MB = 1; float pages, then ``kvs``.
+        Returns the inputs with their edited lengths."""
+        q, k, v, bt, lengths = args
         N, MB, page = q.shape[0], bt.shape[1], k.shape[1]
         pps = pa.plan_split(N, k.shape[2], MB, sms)
         edge = [pps * page, 2 * pps * page, pps * page + 1, MB * page, 0,
@@ -441,14 +483,25 @@ def run_edge_checks(gen) -> None:
         lengths[:len(edge)] = torch.tensor(edge, dtype=torch.int32, device=DEV)
         full = (q, k, v, bt, lengths)
         one = (q, k, v, bt[:, :1], lengths.clamp(max=page))
-        for kv in (None, "fp8", "int8"):
-            for case, a in ((f"split edges (pps {pps})", full), ("MB = 1", one)):
+        for kv in (None, *kvs):
+            for case, a in ((f"{label}split edges (pps {pps})", full),
+                            (f"{label}MB = 1", one)):
                 a = a if kv is None else quantize_pages(a, kv)
                 kw = {} if kv is None else {"k_scale": a[5], "v_scale": a[6]}
                 edge_row(paged_variant(a[1]), case, dtype,
                          pa.paged_decode_attention(*a[:5], **kw),
                          ref.paged_decode_attention(*a[:5], **kw))
-        # MLA's layout: one latent pool, v = k[..., :32], copied by nobody
+        return full
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bt, lengths = split_edges(paged_inputs(dtype, gen), "",
+                                           ("fp8", "int8"))
+        # Phi-3.5-MoE at (4, 2): 4 kv heads of 128 per device, G = 4
+        split_edges(paged_inputs(dtype, gen, kg=4, hd=128, G=4),
+                    "Phi Dk 128 G 4 ", ("fp8",))
+        N, page = q.shape[0], k.shape[1]
+        # MLA's layout: one latent pool, v = k[..., :32], copied by nobody,
+        # on the split-edge lengths above
         lat = torch.randn(k.shape[0], page, 1, 40, device=DEV,
                           generator=gen).to(dtype)
         ql = torch.randn(N, 16, 40, device=DEV, generator=gen).to(dtype)
@@ -484,6 +537,10 @@ def run_edge_checks(gen) -> None:
                        causal=causal)
         flash_edge(gen, dtype, 1, 65, 129, 64, 64, q_offset=64)
         flash_edge(gen, dtype, 2, 70, 90, 64, 32, kv_len=[90, 33], q_offset=20)
+        # Phi-3.5-MoE's prefill heads: 32 q / 8 kv of 128, ragged tails
+        flash_edge(gen, dtype, 1, 2001, 2001, 128, 128, Hkv=8)
+        flash_edge(gen, dtype, 2, 150, 150, 128, 128, kv_len=[150, 77], Hkv=8)
+        flash_edge(gen, dtype, 1, 65, 129, 128, 128, q_offset=64, Hkv=8)
         if dtype == torch.bfloat16:
             for d in (16, 24, 40, 96, 256):
                 flash_edge(gen, dtype, 2, 77, 77, d, d, kv_len=[77, 50])
@@ -493,15 +550,17 @@ def run_edge_checks(gen) -> None:
 # phase 3: engine
 # --------------------------------------------------------------------------- #
 def teacher_forced_check(cfg, params, prompts, results, tag,
-                         new_tokens: int = NEW_TOKENS) -> int:
+                         new_tokens: int | None = NEW_TOKENS) -> int:
     """Every transcript must equal the port's greedy forward: one forward
     per request over prompt + transcript, argmax at every generated
     position.  A divergence is tolerated only where the reference's top-2
-    logit gap is below GAP_TOL; it is printed with both values."""
+    logit gap is below GAP_TOL; it is printed with both values.  With
+    ``new_tokens`` None a transcript of any nonzero length must be a
+    prefix of greedy (an OOM finish)."""
     ties = 0
     for rid, prompt in enumerate(prompts):
         toks = results[rid].tokens
-        if len(toks) != new_tokens:
+        if len(toks) != (new_tokens or len(toks)) or not toks:
             fail(f"{tag}: request {rid} emitted {len(toks)} tokens")
         seq = torch.as_tensor(np.concatenate([prompt, toks[:-1]]),
                               device=DEV)[None]
@@ -632,7 +691,8 @@ def make_engine(cfg, params, prompts, pipeline: bool, *,
 def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
                tag: str | None = None, new_tokens: int = NEW_TOKENS,
                escalate: bool = False, keep_logits: bool = False,
-               **kw) -> dict:
+               mid_run=None, expect_stats: dict | None = None,
+               oom: bool = False, **kw) -> dict:
     """One engine run, its launch counts zeroed right before and read right
     after.  Float32 pools: transcripts equal the greedy forward.  Quantized
     pools: the tolerance contract, every paged launch of the quantized
@@ -641,7 +701,11 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
     escalation re-shard must have run.  The largest paged call of a
     quantized run's first steps is kept in ``row["captured"]``; with
     ``keep_logits`` the step logits by request in ``row["step_logits"]``
-    and the transcripts in ``row["tokens"]``."""
+    and the transcripts in ``row["tokens"]``.  ``mid_run(eng)`` runs once
+    after the third step (a drain, a compaction); ``expect_stats`` gives
+    minimums of ``hot_path_stats``; with ``oom`` every request must end in
+    a request-level OOM with a greedy prefix.  MoE runs record the rows per
+    MoE binding (B_s) of every dispatched step and its capacity C."""
     quantized = quant.is_quantized(kv_dtype)
     tag = tag or ("pipelined" if pipeline else "non-pipelined")
     torch.cuda.reset_peak_memory_stats()
@@ -657,10 +721,13 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
     fa.LAUNCHES = 0
     cap = LargestPagedCall() if quantized else None
     step_ms, prefill_us, steady, host_us, rounds = [], 0.0, [], {}, 0
+    moe_steps = []
     t_run = time.perf_counter()
     with torch.no_grad():
         while eng.pending and len(step_ms) < 200:
             inspect = cap is not None and len(step_ms) < CAPTURE_STEPS
+            if mid_run is not None and len(step_ms) == 3:
+                mid_run(eng)
             t0 = time.perf_counter()
             if inspect:
                 with cap:
@@ -670,6 +737,12 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
             dt = (time.perf_counter() - t0) * 1e3
             step_ms.append(dt)
             rounds = max(rounds, eng.last_rounds_used)
+            if cfg.is_moe and "dispatch_us" in eng.timings:
+                b = eng.last_batch_sizes
+                moe_steps.append({"max_rows": int(b.max()),
+                                  "mean_rows": float(b.mean()),
+                                  "capacity": moe.capacity(
+                                      cfg, eng.last_bucket[0])})
             if "prefill_us" in eng.timings:
                 prefill_us += eng.timings["prefill_us"]
             elif "dispatch_us" in eng.timings and not inspect:
@@ -707,6 +780,14 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
                 or len(fin.kv_binding) != 2):
             fail(f"{tag}: no escalation re-shard: {hp}, binding "
                  f"{fin.kv_binding}")
+    for k, least in (expect_stats or {}).items():
+        if hp[k] < least:
+            fail(f"{tag}: hot_path_stats[{k!r}] = {hp[k]} < {least}: {hp}")
+    if oom:
+        short = [r for r, g in eng.results.items()
+                 if not g.oom or len(g.tokens) >= new_tokens]
+        if short:
+            fail(f"{tag}: requests {short} did not end in an OOM finish")
     if quantized:
         row.update(quant_contract(cfg, params, prompts, eng, kv_dtype, tag,
                                   new_tokens))
@@ -717,9 +798,15 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
             fail(f"{tag}: the quantized re-shard never ran: {hp}")
         row["captured_kv_tokens"] = cap.tokens
     else:
-        row["ties_tolerated"] = teacher_forced_check(cfg, params, prompts,
-                                                     eng.results, tag,
-                                                     new_tokens)
+        row["ties_tolerated"] = teacher_forced_check(
+            cfg, params, prompts, eng.results, tag,
+            None if oom else new_tokens)
+    if oom:
+        row["tokens_before_oom"] = [len(g.tokens)
+                                    for g in eng.results.values()]
+    if moe_steps:
+        row["moe_steps"] = moe_steps
+        row["launches_per_step"] = {k: v / steps for k, v in launches.items()}
     decode_tokens = sum(len(r.tokens) - 1 for r in eng.results.values())
     decode_s = sum(step_ms) / 1e3 - prefill_us / 1e6
     row.update({
@@ -750,14 +837,80 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
     return row
 
 
+# the MoE pieces whose device time the profiles report, by range name
+MOE_RANGES = {
+    "moe.routing": ((moe, "router_topk"), (moe, "group_by_expert")),
+    "moe.expert_ffn": ((moe, "expert_ffn"),),
+    "moe.all_to_all": ((moe_parallel, "_dispatch"),
+                       (moe_parallel, "_combine")),
+    "moe.gate_combine": ((moe, "combine"),),
+}
+
+
+class MoERanges:
+    """While active, runs each MoE piece of ``MOE_RANGES`` inside a
+    ``torch.profiler.record_function`` range of its name, so a trace can
+    give the device time of its kernels.  The ranges do not nest.  The
+    pieces are swapped on their modules, so a call site that binds one by
+    direct import escapes its range: ``range_device_ms`` fails then."""
+
+    def __enter__(self):
+        self._saved = []
+        for name, sites in MOE_RANGES.items():
+            for mod, attr in sites:
+                fn = getattr(mod, attr)
+                self._saved.append((mod, attr, fn))
+                setattr(mod, attr, self._wrap(name, fn))
+        return self
+
+    @staticmethod
+    def _wrap(name, fn):
+        def ranged(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return ranged
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+
+def range_device_ms(prof, absent=()) -> dict:
+    """Device time (ms) of the kernels launched inside each MoE range: the
+    host-side range's kernels and its children's.  (The range's device-side
+    annotation spans from its first kernel to its last, idle gaps
+    included, so it is not used.)  Fails if a range other than those the
+    traced path does not run (``absent``) recorded no device time."""
+    out = {name: 0.0 for name in MOE_RANGES}
+    for e in prof.events():
+        if e.name in out and e.device_type == torch.autograd.DeviceType.CPU:
+            out[e.name] += float(e.device_time_total) / 1e3
+    for name, ms in out.items():
+        if ms <= 0 and name not in absent:
+            fail(f"profile: MoE range {name} recorded no device time "
+                 f"(a call site no longer goes through "
+                 f"{', '.join(attr for _, attr in MOE_RANGES[name])})")
+    return out
+
+
+def kernel_events(prof) -> list:
+    """The trace's kernels, averaged by name: a CPU op's entry repeats its
+    kernels' device time, and a range's device-side annotation spans its
+    kernels, so both are left out."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0 and e.key not in MOE_RANGES]
+
+
 def profile_engine(cfg, params, prompts) -> tuple:
     """A third, pipelined run of the same traffic.  During its first steps
     it keeps a frozen copy of the inputs of the largest paged-decode call
     the main path makes (most kv tokens); then ``torch.profiler`` traces
     PROFILE_STEPS steady steps: device time by kernel, and the device's busy
     share of the traced window (the profiler's own host overhead lengthens
-    the window, so the share is a lower bound).  Returns the captured
-    call's (inputs, scale)."""
+    the window, so the share is a lower bound).  An MoE model's trace also
+    gives the device time of its MoE pieces (``MOE_RANGES``).  Returns the
+    captured call's (inputs, scale)."""
     eng = make_engine(cfg, params, prompts, pipeline=True)
     with torch.no_grad(), LargestPagedCall() as cap:
         for _ in range(CAPTURE_STEPS):      # admission + first decode steps
@@ -765,7 +918,8 @@ def profile_engine(cfg, params, prompts) -> tuple:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+    with (torch.no_grad(), MoERanges(),
+          torch.profiler.profile(activities=acts) as prof):
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
             eng.step()
@@ -777,10 +931,7 @@ def profile_engine(cfg, params, prompts) -> tuple:
     def dev_us(e):
         return float(e.self_device_time_total)
 
-    # kernel entries only: a CPU op's entry repeats its kernels' device time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and dev_us(e) > 0]
+    events = kernel_events(prof)
     device_us = sum(dev_us(e) for e in events)
     top = sorted(events, key=dev_us, reverse=True)[:12]
     row = {"phase": "profile", "model": cfg.name, "run": "pipelined",
@@ -788,8 +939,14 @@ def profile_engine(cfg, params, prompts) -> tuple:
            "window_us": window_us, "device_us": device_us,
            "device_busy_share": device_us / window_us,
            "kernel_launches": sum(e.count for e in events),
+           "kernel_launches_per_step": sum(e.count for e in events)
+                                       / PROFILE_STEPS,
            "top_kernels": [{"name": e.key[:80], "count": e.count,
                             "device_us": dev_us(e)} for e in top]}
+    if cfg.is_moe:
+        row["device_ms_per_step"] = device_us / 1e3 / PROFILE_STEPS
+        row["moe_share"] = {k: v * 1e3 / device_us
+                            for k, v in range_device_ms(prof).items()}
     emit(row)
     del eng
     gc.collect()        # the engine and its step cache form a cycle
@@ -800,25 +957,32 @@ def profile_engine(cfg, params, prompts) -> tuple:
 def profile_prefill(cfg, params, prompt) -> dict:
     """Device time of one prefill forward (with KV collection, as the
     engine runs it) of the longest prompt, by ``torch.profiler``: all
-    kernels, and the flash kernel's share."""
+    kernels, the flash kernel's share, and for an MoE model the device time
+    of its MoE pieces (``MOE_RANGES``)."""
     toks = torch.as_tensor(prompt, device=DEV)[None]
     with torch.no_grad():
         transformer.forward(cfg, params, toks, collect_kv=True, device=DEV)
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        with MoERanges(), torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
             transformer.forward(cfg, params, toks, collect_kv=True, device=DEV)
             torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+            window_us = (time.perf_counter() - t0) * 1e6
+    events = kernel_events(prof)
     flash = [e for e in events if "flash_fwd" in e.key]
     row = {"phase": "prefill", "model": cfg.name, "prompt_len": len(prompt),
            "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
            "flash_ms": sum(e.self_device_time_total for e in flash) / 1e3,
            "flash_launches": sum(e.count for e in flash),
-           "kernel_launches": sum(e.count for e in events)}
+           "kernel_launches": sum(e.count for e in events),
+           "window_ms": window_us / 1e3}
+    if cfg.is_moe:
+        # prefill groups per request: no all-to-all
+        row["moe_device_ms"] = ms = range_device_ms(
+            prof, absent=("moe.all_to_all",))
+        row["moe_share"] = {k: v / row["device_ms"] for k, v in ms.items()}
     emit(row)
     return row
 
@@ -897,7 +1061,9 @@ def main() -> None:
           "tol": DENSE_LOGIT_TOL,
           "median_steady_step_ms": dense["median_steady_step_ms"],
           "routed_median_steady_step_ms": twin["median_steady_step_ms"]})
-    del params, twin, dense
+    del twin, dense
+    run_spill_phase(cfg, params, prompts)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -941,6 +1107,11 @@ def main() -> None:
         row = paged_row(a, a[0].dtype, "mla main path", scale=msc)
         emit(row)
         ksum[row["name"]].append(row)
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moe_runs = run_moe_phase(ksum)
 
     src, replaces = ("src/repro_torch/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_attention.py:36")
@@ -962,7 +1133,11 @@ def main() -> None:
             ("paged_decode_mla_int8", src, replaces,
              mq["int8"]["launches"]["paged_decode"]),
             ("flash_fwd_mla", fsrc, freplaces,
-             mruns[0]["launches"]["flash_fwd"])):
+             mruns[0]["launches"]["flash_fwd"]),
+            ("paged_decode_moe", src, replaces,
+             moe_runs[0]["launches"]["paged_decode"]),
+            ("flash_fwd_moe", fsrc, freplaces,
+             moe_runs[0]["launches"]["flash_fwd"])):
         rows = ksum[name]
         # the timing at the main path's shapes: the captured paged call, and
         # the 2000-token prompt's prefill attention; bf16 q beside it
@@ -983,6 +1158,86 @@ def main() -> None:
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def run_spill_phase(cfg, params, prompts) -> None:
+    """Phase 8 (TinyLlama): spill relief, the OOM finish, drain and
+    compaction through the engine."""
+    rng = np.random.default_rng(0)
+    cell = dict(num_instances=2, instances_per_node=2, tp=2,
+                shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4),
+                                           s_buckets=(0, 1, 2, 4), window=2),
+                max_slots_per_instance=4)
+    # the scheduler's escalation off: growth spills at table lowering and
+    # the engine's spill relief escalates the KV (the MoE binding stays)
+    no_escalation = DualBalancedScheduler(
+        buckets=CPBuckets(edges=(100_000,), degrees=(1, 2)),
+        allow_rebalance=True, max_batch_per_instance=4, has_kv=True,
+        kv_reserve=16, allow_escalation=False)
+    spill = run_engine(cfg, params, [rng.integers(0, cfg.vocab_size, (40,))],
+                       True, tag="spill relief", new_tokens=64,
+                       kv_capacity_tokens=96, scheduler=no_escalation,
+                       expect_stats={"spill_escalations": 1,
+                                     "reshard_tokens": 1}, **cell)
+    oom = run_engine(cfg, params, [rng.integers(0, cfg.vocab_size, (24,))],
+                     True, tag="oom finish", new_tokens=100, oom=True,
+                     kv_capacity_tokens=48,
+                     buckets=CPBuckets(edges=(16,), degrees=(1, 2)),
+                     expect_stats={"oom_finishes": 1}, **cell)
+
+    def drain_then_compact(eng):
+        cl = eng.cluster
+        victim = int(np.bincount([r.moe_binding for r in cl.active.values()],
+                                 minlength=cl.num_instances).argmax())
+        if not eng.drain_instance(victim):
+            fail("drain: nothing evacuated")
+        if cl.page_table.instance_used_tokens(victim):
+            fail(f"drain: instance {victim} still holds KV")
+        eng.compact()
+
+    maint = run_engine(cfg, params, prompts, True, tag="drain + compact",
+                       mid_run=drain_then_compact,
+                       expect_stats={"drains": 1, "compacts": 1})
+    emit({"phase": "spill", "model": cfg.name,
+          "spill_escalations": spill["hot_path_stats"]["spill_escalations"],
+          "oom_tokens": oom["tokens_before_oom"],
+          "drain_relaxations": maint["hot_path_stats"]["relaxations"],
+          "ok": True})
+
+
+def run_moe_phase(ksum: dict) -> list:
+    """Phase 10: Phi-3.5-MoE at full width, 8 of 32 layers.  Returns the
+    (4, 2) pipelined, non-pipelined and (2, 4) runs' rows."""
+    cfg = replace(get_config("phi3.5-moe-42b-a6.6b"), num_layers=PHI_LAYERS,
+                  capacity_factor=PHI_CAPACITY_FACTOR)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device=DEV,
+                                     dtype=torch.float32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    emit({"phase": "moe", "model": cfg.name, "layers": cfg.num_layers,
+          "params": n_params, "param_gb": n_params * 4 / 1e9,
+          "init_s": time.perf_counter() - t0,
+          "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (L,)) for L in PROMPT_LENS]
+    runs = [run_engine(cfg, params, prompts, pipeline=p,
+                       tag=f"moe {'pipelined' if p else 'non-pipelined'}")
+            for p in (True, False)]
+    run_engine(cfg, params, prompts, True, tag="moe 2x4 pipelined",
+               num_instances=2, instances_per_node=2, tp=4,
+               buckets=CPBuckets(edges=(256,), degrees=(1, 2)))
+    args, _ = profile_engine(cfg, params, prompts)
+    profile_prefill(cfg, params, prompts[int(np.argmax(PROMPT_LENS))])
+    for a in (args, as_bf16_call(args)):
+        row = paged_row(a, a[0].dtype, "moe main path", name="paged_decode_moe")
+        emit(row)
+        ksum.setdefault("paged_decode_moe", []).append(row)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
 
 
 def _leaves(tree):

@@ -1,6 +1,6 @@
 """DCP decode step (§5) on a virtual (instance, tp) mesh
-(port of ``repro/core/dcp.py``: the dense GQA and MLA paths, routed and
-dense backends).
+(port of ``repro/core/dcp.py``: the dense GQA and MLA paths, dense and
+MoE FFNs, routed and dense backends).
 
 The JAX package runs the step per device inside ``shard_map`` over the
 (`data`, `model`) mesh.  The port runs the whole mesh in one process on one
@@ -19,7 +19,10 @@ The four phases per attention layer: (1) route q rows over the zig-zag
 ring, (2) paged decode attention — ONE kernel launch for every virtual
 device (pools flattened to one page axis, block tables offset per device),
 (3) return the partial (out, lse) rows, (4) merge them with ``merge_lse``.
-Then the TP dense FFN and the vocab-sharded greedy sample.
+Then the FFN — the TP dense FFN, or the wide-EP MoE dispatch/combine
+(``moe_parallel.moe_decode_ffn``: experts over the instances, an
+all-to-all each way as a transpose of the [I_src, I_dst, ...] buffer) —
+and the vocab-sharded greedy sample.
 
 Column-parallel weights keep the full ``[D, C]`` layout (chunk j is column
 block j, so ``x @ w`` viewed as ``[.., tp, C/tp]`` is every device's
@@ -37,7 +40,7 @@ scales ``k_scale``/``v_scale`` (MLA: one ``kv_scale``)
 ``[nb, n_attn, I, tp, F']``; appends quantize under the offset-0 rule
 (``kernels/quant.py``) and the paged kernel dequantizes as it reads.
 
-Not ported yet (each raises ``NotImplementedError``): MoE, SSM and
+Not ported yet (each raises ``NotImplementedError``): SSM and
 encoder-decoder steps.
 """
 from __future__ import annotations
@@ -53,7 +56,7 @@ from ..kernels import ops, quant
 from ..models import layers as L
 from ..models.transformer import block_slice, check_supported
 from . import comm
-from .moe_parallel import dense_decode_ffn
+from .moe_parallel import dense_decode_ffn, moe_decode_ffn
 
 
 # --------------------------------------------------------------------------- #
@@ -184,13 +187,20 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
     tile kv heads across page subgroups, reshape MLA's up-projections per
     head (``wk_b``/``wv_b`` ``[nb, hp, kvr, dn|dv]``, padded and permuted
     like q), and cut the row-parallel weights (``wo`` of attention and FFN)
-    into ``[nb, tp, R/tp, D]`` chunks."""
+    into ``[nb, tp, R/tp, D]`` chunks.  MoE FFN leaves pass through as
+    they are (no copy); their widths are checked against tp as the
+    reference's sharding requires."""
     check_supported(cfg)
     hd = cfg.head_dim_
     hp = attn_tp_geometry(cfg, tp)[0]
     pad_q, pad_q_rows, tile_kv, perm = _head_tools(cfg, tp)
-    if cfg.d_ff % tp:
-        raise ValueError(f"d_ff={cfg.d_ff} does not split over tp={tp}")
+    kinds = cfg.block_pattern()
+    for kind in kinds:
+        ffn_dims = ((cfg.moe_d_ff_, cfg.moe_d_ff_ * cfg.num_shared_experts)
+                    if kind["ffn"] == "moe" else (cfg.d_ff,))
+        for f in ffn_dims:
+            if f % tp:
+                raise ValueError(f"FFN width {f} does not split over tp={tp}")
 
     def row_chunks(w):
         nb, R, D = w.shape
@@ -216,20 +226,22 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
             m["wq"] = pad_q(mx["wq"], dn + dr).contiguous()
         return m
 
-    def conv_layer(lp):
+    def conv_layer(lp, kind):
         mx, ffn = lp["mixer"], lp["ffn"]
         mixer = mla_mixer(mx) if cfg.is_mla else {
             "wq": pad_q(mx["wq"], hd).contiguous(),
             "wk": tile_kv(mx["wk"], hd).contiguous(),
             "wv": tile_kv(mx["wv"], hd).contiguous(),
             "wo": row_chunks(pad_q_rows(mx["wo"], hd))}
+        if kind["ffn"] != "moe":
+            ffn = {"wi_gate": ffn["wi_gate"], "wi_up": ffn["wi_up"],
+                   "wo": row_chunks(ffn["wo"])}
         return {"ln1": lp["ln1"], "ln2": lp["ln2"], "mixer": mixer,
-                "ffn": {"wi_gate": ffn["wi_gate"], "wi_up": ffn["wi_up"],
-                        "wo": row_chunks(ffn["wo"])}}
+                "ffn": ffn}
 
     return {"embed": params["embed"],
-            "blocks": {"layers": [conv_layer(lp)
-                                  for lp in params["blocks"]["layers"]]},
+            "blocks": {"layers": [conv_layer(lp, kind) for lp, kind
+                                  in zip(params["blocks"]["layers"], kinds)]},
             "final_norm": params["final_norm"], "head": params["head"]}
 
 
@@ -588,6 +600,9 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
     check_supported(cfg)
     check_dims(dims)
     pattern = cfg.block_pattern()
+    if cfg.is_moe and cfg.num_experts % dims.data_size:
+        raise ValueError(f"num_experts={cfg.num_experts} does not split over "
+                         f"{dims.data_size} instances")
     geom = attn_tp_geometry(cfg, dims.tp)
     I, M, tp = dims.data_size, dims.M, dims.tp
     layer = _mla_layer if cfg.is_mla else _attn_layer
@@ -606,8 +621,14 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
                 pools = tuple(None if n is None or n not in state
                               else state[n][bi, li] for n in names)
                 x = x + layer(cfg, dims, lp, x, pools, tbl, geom)
+                if kind["ffn"] == "none":
+                    continue
                 h = L.apply_norm(cfg, lp["ln2"], x)
-                x = x + dense_decode_ffn(cfg, lp["ffn"], h, tp)
+                if kind["ffn"] == "moe":
+                    x = x + moe_decode_ffn(cfg, lp["ffn"], h, data_size=I,
+                                           tp=tp)
+                else:
+                    x = x + dense_decode_ffn(cfg, lp["ffn"], h, tp)
         x = L.apply_norm(cfg, params["final_norm"], x)
         logits = L.apply_head(cfg, params["head"], params["embed"], x)
         logits = logits.float().reshape(I, M, -1)

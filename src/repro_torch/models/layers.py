@@ -16,18 +16,24 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0, *,
 
 
 def make_norm_params(cfg: ModelConfig, dim: int, device="cuda") -> dict:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError("layernorm models are not ported yet "
-                                  "(ROADMAP queue 1 item 12)")
-    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+    p = {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((dim,), dtype=torch.float32, device=device)
+    return p
 
 
 def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in float32, result in x's dtype."""
+    """LayerNorm (with bias) or RMSNorm in float32, result in x's dtype."""
     xf = x.float()
-    ms = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
+    if cfg.norm == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return out.to(x.dtype)
 
 
 def rms_norm_vec(x: torch.Tensor, scale: torch.Tensor,
@@ -67,11 +73,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # MLP (gated silu)
 # --------------------------------------------------------------------------- #
-def make_mlp_params(gen, cfg: ModelConfig, *, dtype, device) -> dict:
+def make_mlp_params(gen, cfg: ModelConfig, *, dtype, device,
+                    d_ff: int | None = None) -> dict:
     if cfg.act != "silu":
         raise NotImplementedError("gelu MLPs are not ported yet "
                                   "(ROADMAP queue 1 item 12)")
-    D, Fd = cfg.d_model, cfg.d_ff
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
     return {"wi_gate": dense_init(gen, (D, Fd), dtype=dtype, device=device),
             "wi_up": dense_init(gen, (D, Fd), dtype=dtype, device=device),
             "wo": dense_init(gen, (Fd, D), dtype=dtype, device=device)}

@@ -1,11 +1,11 @@
-"""Decoder-only trunk: init + prefill forward for the dense GQA and MLA
-families (port of ``repro/models/transformer.py``).
+"""Decoder-only trunk: init + prefill forward for the dense GQA, MLA and
+MoE families (port of ``repro/models/transformer.py``).
 
 The trunk is ``cfg.num_blocks`` repeats of a ``cfg.block_period``-layer
 block pattern; block parameters are stacked on a leading axis (the JAX
 package's ``params["blocks"]`` layout, which it ``lax.scan``s) and the
-forward loops over them.  MoE, SSM and encoder-decoder families raise
-``NotImplementedError`` (ROADMAP queue 1 items 10-12).
+forward loops over them.  SSM and encoder-decoder families raise
+``NotImplementedError`` (ROADMAP queue 1 items 11-12).
 """
 from __future__ import annotations
 
@@ -15,13 +15,11 @@ from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from . import attention as attn_mod
-from . import layers, mla
+from . import layers, mla, moe
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense GQA and MLA families (so far)."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP queue 1 item 10)")
+    """The port serves the dense GQA, MLA and MoE families (so far)."""
     if cfg.family in ("ssm", "hybrid") or not cfg.has_attention:
         raise NotImplementedError("SSM/hybrid models are not ported yet "
                                   "(ROADMAP queue 1 item 11)")
@@ -48,24 +46,48 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
 
     make_mixer = mla.make_mla_params if cfg.is_mla else attn_mod.make_attn_params
 
-    def layer_params():
+    def layer_params(kind):
+        make_ffn = (moe.make_moe_params if kind["ffn"] == "moe"
+                    else layers.make_mlp_params)
         return {"ln1": layers.make_norm_params(cfg, cfg.d_model, dev),
                 "mixer": make_mixer(gen, cfg, **kw),
                 "ln2": layers.make_norm_params(cfg, cfg.d_model, dev),
-                "ffn": layers.make_mlp_params(gen, cfg, **kw)}
+                "ffn": make_ffn(gen, cfg, **kw)}
 
+    # each block is written into preallocated stacked leaves as soon as it
+    # is made: the peak is the stack plus one block, never two stacks
     pattern = cfg.block_pattern()
-    per_block = [[layer_params() for _ in pattern]
-                 for _ in range(cfg.num_blocks)]
-    stacked = [{grp: {name: torch.stack([blk[li][grp][name]
-                                         for blk in per_block])
-                      for name in per_block[0][li][grp]}
-                for grp in per_block[0][li]}
-               for li in range(len(pattern))]
+    stacked = None
+    for bi in range(cfg.num_blocks):
+        blk = [layer_params(kind) for kind in pattern]
+        if stacked is None:
+            stacked = _map(blk, lambda t: t.new_empty((cfg.num_blocks,
+                                                       *t.shape)))
+        _map2(stacked, blk, lambda s, t: s[bi].copy_(t))
+        del blk
     return {"embed": layers.make_embed_params(gen, cfg, **kw),
             "blocks": {"layers": stacked},
             "final_norm": layers.make_norm_params(cfg, cfg.d_model, dev),
             "head": layers.make_head_params(gen, cfg, **kw)}
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _map2(a, b, fn):
+    if isinstance(a, dict):
+        for k in a:
+            _map2(a[k], b[k], fn)
+    elif isinstance(a, list):
+        for x, y in zip(a, b):
+            _map2(x, y, fn)
+    else:
+        fn(a, b)
 
 
 def block_slice(tree, i: int):
@@ -103,7 +125,10 @@ def apply_layer(cfg: ModelConfig, kind: dict, lp: dict, x: torch.Tensor,
         B, S = h.shape[:2]
         x = x + o.reshape(B, S, -1) @ lp["mixer"]["wo"]
     h = layers.apply_norm(cfg, lp["ln2"], x)
-    x = x + layers.apply_mlp(cfg, lp["ffn"], h)
+    if kind["ffn"] == "moe":
+        x = x + moe.moe_ffn_batched(cfg, lp["ffn"], h)
+    else:
+        x = x + layers.apply_mlp(cfg, lp["ffn"], h)
     return x, aux
 
 

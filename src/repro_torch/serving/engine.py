@@ -35,12 +35,22 @@ on the hot path.
 
 ``backend="dense"`` runs the all-gather baseline of the data plane in place
 of the routed rotations (same tables, same results).  MLA models cache
-their latent in one ``kv_pool`` (``core/dcp.py``).
+their latent in one ``kv_pool`` (``core/dcp.py``); MoE models run their
+experts over the instances (wide EP) in the decode step.
+
+KV spill relief: a decode append that overruns its shard surfaces at
+table lowering as a typed ``KVSpillError`` (page table untouched); the
+engine escalates the request onto shards with headroom
+(``scheduler.relieve_spill``, the MoE binding stays put) or, when no
+shard can take the KV, finishes it with a request-level OOM
+(``GenResult.oom``), and lowers again.  ``drain_instance`` evacuates an
+instance's KV live and ``compact`` forces one relaxation pass, both
+through the same re-shard.
 
 Not ported yet, each raising ``NotImplementedError`` where the reference
-would act: data-plane copies, spill relief, OOM finishes, failure and
-drain (ROADMAP queue 1 item 7); MoE, SSM and encoder-decoder models (items
-10-12); the prefix cache, admission control and prefill cells (item 13).
+would act: SSM and encoder-decoder models (items 11-12); the prefix
+cache and its data-plane copies, failure, forced drain and join,
+admission control and prefill cells (item 13).
 """
 from __future__ import annotations
 
@@ -68,6 +78,9 @@ class GenResult:
     rid: int
     prompt: list
     tokens: list = field(default_factory=list)
+    # True when the request was finished early by a clean request-level OOM
+    # (KV spill with no shard headroom anywhere to escalate into)
+    oom: bool = False
 
 
 @dataclass
@@ -173,10 +186,13 @@ class NanoCPEngine:
         self.timings: dict = {}
         self.last_bucket: tuple | None = None
         self.last_rounds_used: int = 0
+        # rows per MoE binding (B_s) of the last dispatched step's plan
+        self.last_batch_sizes: np.ndarray | None = None
         self.hot_path_stats: dict = {
             "steps": 0, "async_token_fetches": 0, "speculative_slots": 0,
             "prefill_eos_finishes": 0, "escalations": 0, "relaxations": 0,
-            "relax_tokens": 0, "reshard_tokens": 0}
+            "relax_tokens": 0, "reshard_tokens": 0, "spill_escalations": 0,
+            "oom_finishes": 0, "drains": 0, "compacts": 0}
 
     # ------------------------------------------------------------------ #
     @staticmethod
@@ -212,12 +228,6 @@ class NanoCPEngine:
     # -- reference entry points outside the main path ------------------- #
     def add_audio_request(self, *args, **kwargs):
         raise _not_ported("encoder-decoder (whisper) serving", 12)
-
-    def drain_instance(self, instance: int, force: bool = False):
-        raise _not_ported("instance drain (live evacuation)", 7)
-
-    def compact(self):
-        raise _not_ported("compaction (forced relaxation pass)", 7)
 
     def fail_instance(self, instance: int, now: float | None = None):
         raise _not_ported("instance failure recovery", 13)
@@ -324,7 +334,66 @@ class NanoCPEngine:
         self.hot_path_stats["relax_tokens"] += sum(e.tokens_moved
                                                    for e in relaxed)
         self.hot_path_stats["reshard_tokens"] += int(src.shape[1])
-        self.timings["reshard_us"] = (time.perf_counter() - t0) * 1e6
+        self.timings["reshard_us"] = (self.timings.get("reshard_us", 0.0)
+                                      + (time.perf_counter() - t0) * 1e6)
+
+    def _handle_spill(self, err: KVSpillError, now: float) -> list:
+        """A decode append overran its shard at table lowering: escalate the
+        spilled request onto shards with headroom, or, when no shard in the
+        node can take the KV, finish it with a clean request-level OOM.
+        (The reference first evicts prefix-cache replicas on the spilled
+        instance; without the prefix cache there are none.)  Returns the
+        requests finished here (empty when relief worked)."""
+        escs = self.scheduler.relieve_spill(self.cluster, err.rid,
+                                            err.instance)
+        if escs:
+            self._apply_escalations(escs)
+            self.hot_path_stats["spill_escalations"] += len(escs)
+            return []
+        req = self.cluster.active.get(err.rid)
+        if req is None:
+            return []
+        self.results[err.rid].oom = True
+        self.cluster.finish(req, now)
+        req.status = "oom"
+        self.finished.append(req)
+        self.hot_path_stats["oom_finishes"] += 1
+        return [req]
+
+    def drain_instance(self, instance: int, force: bool = False) -> list:
+        """Planned drain (live migration, zero data loss): evacuate every
+        request's resident KV off ``instance`` through the re-shard, mark
+        the instance dead, and rebalance MoE bindings off it.  The drained
+        instance's requests keep decoding with unchanged tokens.  Raises
+        ``MemoryError`` (instance left serving, page table untouched) when
+        the cluster cannot take its KV.  The forced drain (deadline
+        fallback with fail semantics) comes with fault tolerance."""
+        if force:
+            raise _not_ported("forced drain (fail semantics for stragglers)",
+                              13)
+        # dead first so the evacuation planner never picks it as a receiver;
+        # rolled back when evacuate raises
+        self.cluster.dead_instances.add(instance)
+        try:
+            escalations = self.scheduler.evacuate(self.cluster, instance)
+        except MemoryError:
+            self.cluster.dead_instances.discard(instance)
+            raise
+        self._apply_escalations(escalations)
+        self.scheduler.rebalance(self.cluster)
+        self.hot_path_stats["drains"] += 1
+        return escalations
+
+    def compact(self) -> list:
+        """Planned maintenance, the relaxation twin of ``drain_instance``:
+        one forced cluster-wide relaxation pass (de-escalate bindings wider
+        than their bucket degree, consolidate tail pages back onto the MoE
+        binding; the cooldown is overridden, the headroom guard band is
+        not), with the live re-shard applied now."""
+        records = self.scheduler.relax(self.cluster, force=True)
+        self._apply_escalations(records)
+        self.hot_path_stats["compacts"] += 1
+        return records
 
     @staticmethod
     def _check_plan(plan) -> None:
@@ -332,7 +401,7 @@ class NanoCPEngine:
         plans need movement paths that are not ported yet."""
         if plan.copies:
             raise _not_ported("data-plane KV copies (CoW / hot-prefix "
-                              "replication)", 7)
+                              "replication)", 13)
         if plan.staged:
             raise _not_ported("prefill-cell staging", 13)
         if plan.rejected or plan.shed or plan.preemptions:
@@ -414,17 +483,27 @@ class NanoCPEngine:
             return prefill_done + self._harvest(now)
 
         # -- lower THIS iteration's tables while the device computes the
-        #    previous one (routing never depends on token VALUES) ----------
+        #    previous one (routing never depends on token VALUES).  A typed
+        #    KV spill surfaces here, page table untouched: relieve it
+        #    (escalate, or OOM-finish the request) and lower again ---------
         t0 = time.perf_counter()
-        try:
-            tbl = routing.lower_plan(self.cluster, plan,
-                                     buckets=self.shape_buckets,
-                                     append_tokens=True,
-                                     next_tokens=self.next_tok,
-                                     arena=self._arena)
-        except KVSpillError as err:
-            raise _not_ported("KV spill relief (escalation / OOM finish)",
-                              7) from err
+        spill_done = []
+        attempts = len(self.cluster.active) + 1
+        while True:
+            try:
+                tbl = routing.lower_plan(self.cluster, plan,
+                                         buckets=self.shape_buckets,
+                                         append_tokens=True,
+                                         next_tokens=self.next_tok,
+                                         arena=self._arena)
+                break
+            except KVSpillError as err:
+                attempts -= 1
+                if attempts <= 0:
+                    raise
+                spill_done += self._handle_spill(err, now)
+                if not self.cluster.active:
+                    return prefill_done + spill_done + self._harvest(now)
         key = self.aot.quantise(tbl.M, tbl.S, tbl.MB, tbl.W, tbl.R)
         if key[2] != tbl.MB:
             raise RuntimeError(f"bucket MB {key[2]} != table MB {tbl.MB}")
@@ -437,7 +516,7 @@ class NanoCPEngine:
         slots_at_lower = ({rid: self.cluster.slot_map[rid]
                            for rid in self.cluster.active}
                           if self.eos is not None and self.pipeline else None)
-        done = prefill_done + self._harvest(now)
+        done = prefill_done + spill_done + self._harvest(now)
 
         # -- patch per-slot input tokens now that they are all known -------
         for rid in self.cluster.active:
@@ -484,6 +563,7 @@ class NanoCPEngine:
         self.iterations += 1
         self.last_bucket = key
         self.last_rounds_used = tbl.R
+        self.last_batch_sizes = plan.batch_sizes()
         self.hot_path_stats["steps"] += 1
         if not self.pipeline:
             done += self._harvest(now)

@@ -46,6 +46,7 @@ def _close(got, want, dtype):
     (5, 8, 8, 128, 128, 32, 2),      # MHA, bigger pages
     (2, 32, 1, 256, 256, 64, 2),     # G 32, page 64
     (4, 8, 2, 34, 18, 16, 3),        # rows of 8-byte (f32) / 4-byte (bf16) multiples
+    (6, 16, 4, 128, 128, 16, 5),     # phi3.5-moe at tp 2 (G 4, hd 128)
 ])
 def test_paged_decode_kernel_vs_plain(N, Hq, Hkv, Dk, Dv, page, MB, dtype):
     g = torch.Generator(device="cuda").manual_seed(N * 100 + Dk)
@@ -85,6 +86,7 @@ def _quantized_pages(Pn, page, H, d, kv_dtype, g):
     (4, 4, 1, 64, 48, 16, 2),        # mla (Dk != Dv)
     (3, 4, 1, 256, 128, 8, 3),       # widest head dim
     (2, 32, 1, 256, 256, 64, 2),     # G 32, page 64
+    (6, 16, 4, 128, 128, 16, 5),     # phi3.5-moe at tp 2 (G 4, hd 128)
 ])
 def test_quantized_paged_decode_kernel_vs_plain(N, Hq, Hkv, Dk, Dv, page, MB,
                                                 dtype, kv_dtype):
@@ -151,6 +153,7 @@ def test_quantized_paged_decode_rejects_bad_mixes():
     (1, 128, 128, 4, 4, 96, 64, None, 0, True),    # Dk != Dv (MLA shape)
     (2, 77, 200, 4, 1, 40, 24, [150, 9], 0, False),
     (1, 33, 70, 2, 2, 256, 256, [60], 30, True),
+    (2, 130, 130, 32, 8, 128, 128, [130, 71], 0, True),   # phi3.5-moe heads
 ])
 def test_flash_kernel_vs_plain(B, Sq, Skv, Hq, Hkv, Dk, Dv, kv_len, q_offset,
                                causal, dtype):

@@ -22,6 +22,7 @@ from repro_torch import params as P
 from repro_torch.configs import CONFIGS, reduced
 from repro_torch.core.aot import AOTGraphEngine
 from repro_torch.core.bucketing import CPBuckets, ShapeBuckets
+from repro_torch.core.scheduler import DualBalancedScheduler
 from repro_torch.models import transformer
 from repro_torch.serving.engine import NanoCPEngine
 
@@ -216,6 +217,229 @@ def test_mla_escalation_moves_latent_and_equals_greedy(kv_dtype):
     ref_lg = np.asarray(lj[0, len(prompt):, :cfg.vocab_size])
     got = np.stack(eng.step_logits[rid])[:, :cfg.vocab_size]
     assert np.abs(got - ref_lg).max() <= 1.5
+
+
+# --------------------------------------------------------------------------- #
+# MoE (reduced phi3.5-moe, capacity factor 8.0: no token dropped, so decode
+# and prefill route alike): the main path's traffic at (4, 2)
+# --------------------------------------------------------------------------- #
+MOE = "phi3.5-moe-42b-a6.6b"
+
+
+@pytest.fixture(scope="module")
+def moe_generation():
+    jcfg, jparams, cfg, params = _models(MOE, vocab_size=256,
+                                         capacity_factor=8.0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, (L,)) for L in PROMPT_LENS]
+    runs = {}
+    for pipeline in (True, False):
+        eng = NanoCPEngine(cfg, params, num_instances=4, instances_per_node=4,
+                           kv_capacity_tokens=2048, page_size=16, tp=2,
+                           buckets=CPBuckets(edges=(100, 256),
+                                             degrees=(1, 2, 3)),
+                           shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4),
+                                                      s_buckets=(0, 1, 2, 4),
+                                                      window=4),
+                           pipeline=pipeline, audit_donation_every_step=True,
+                           device="cpu")
+        ptrs = _pool_ptrs(eng)
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=NEW_TOKENS)
+        eng.run(max_iters=30)
+        runs[pipeline] = (eng, ptrs)
+    ref = {rid: _jax_argmax(jcfg, jparams, prompts[rid], r.tokens)
+           for rid, r in runs[True][0].results.items()}
+    return prompts, runs, ref
+
+
+@pytest.mark.parametrize("pipeline", [True, False],
+                         ids=["pipelined", "non-pipelined"])
+def test_moe_engine_transcripts_equal_jax_greedy(moe_generation, pipeline):
+    """Wide-EP MoE serving through the engine on a (4, 2) mesh: each
+    instance hosts one of the four experts, and the transcripts equal
+    greedy JAX ``transformer.forward``."""
+    prompts, runs, ref = moe_generation
+    eng, ptrs = runs[pipeline]
+    assert sorted(eng.results) == list(range(len(prompts)))
+    for rid, res in eng.results.items():
+        assert len(res.tokens) == NEW_TOKENS, (rid, res.tokens)
+        assert res.tokens == ref[rid], (pipeline, rid, res.tokens, ref[rid])
+    assert not eng.pending and len(eng.finished) == len(prompts)
+    assert _pool_ptrs(eng) == ptrs
+    assert eng.aot.stats.donation_copies == 0
+
+
+# --------------------------------------------------------------------------- #
+# spill relief, OOM finish, compact and drain: ports of the reference's
+# engine_escalation.py (headroom, oom), engine_relaxation.py (compact) and
+# engine_multinode.py (drain) cells, held against greedy JAX forward
+# --------------------------------------------------------------------------- #
+def _cell_engine(cfg, params, *, I, W, tp, cap, edges, degrees, window,
+                 pipeline=True, escalate=True):
+    """The reference cells' engine.  ``escalate=False`` turns off the
+    scheduler's own escalation (bucket edge, low-water mark), so decode
+    growth surfaces as a typed spill at table lowering."""
+    sched = DualBalancedScheduler(
+        buckets=CPBuckets(edges=edges, degrees=degrees), allow_rebalance=True,
+        max_batch_per_instance=4, has_kv=True, kv_reserve=16,
+        allow_escalation=escalate)
+    return NanoCPEngine(cfg, params, num_instances=I, instances_per_node=W,
+                        tp=tp, kv_capacity_tokens=cap, page_size=16,
+                        scheduler=sched,
+                        shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4),
+                                                   s_buckets=(0, 1, 2, 4),
+                                                   window=window),
+                        max_slots_per_instance=4, pipeline=pipeline,
+                        audit_donation_every_step=True, device="cpu")
+
+
+def _drive(eng, max_steps):
+    """Run the engine to the end; returns the MoE bindings each request
+    held while it was active."""
+    bindings: dict = {}
+    for _ in range(max_steps):
+        for rid, req in eng.cluster.active.items():
+            bindings.setdefault(rid, set()).add(req.moe_binding)
+        if not eng.pending:
+            break
+        eng.step()
+    assert not eng.pending
+    return bindings
+
+
+# mode: (arch, kv_capacity_tokens, edges, prompt_len, max_new, escalate)
+SPILL_CELLS = {
+    "headroom": ("tinyllama-1.1b", 96, (100_000,), 40, 40, True),
+    "spill": ("tinyllama-1.1b", 96, (100_000,), 40, 64, False),
+    "oom": ("tinyllama-1.1b", 48, (16,), 24, 100, True),
+    "moe-spill": (MOE, 96, (100_000,), 40, 64, False),
+}
+
+
+@pytest.mark.parametrize("mode,pipeline",
+                         [("headroom", True), ("headroom", False),
+                          ("spill", True), ("spill", False),
+                          ("oom", True), ("oom", False),
+                          ("moe-spill", True)],
+                         ids=["headroom-pipelined", "headroom-non-pipelined",
+                              "spill-pipelined", "spill-non-pipelined",
+                              "oom-pipelined", "oom-non-pipelined",
+                              "moe-spill"])
+def test_spill_relief_and_oom_finish(mode, pipeline):
+    """(2, 2) with a pool of a few pages per instance.  ``headroom``: decode
+    fills the MoE-binding shard and the low-water mark escalates the KV
+    onto the other instance.  ``spill`` (and reduced phi3.5-moe's
+    ``moe-spill``): with the scheduler's escalation off the append spills
+    at table lowering, and the engine's spill relief escalates it.  Either
+    way the MoE binding stays put and tokens equal greedy.  ``oom``: the
+    whole node's pools run out mid-decode; the request finishes with
+    ``GenResult.oom`` and its emitted tokens are a prefix of greedy."""
+    arch, cap, edges, plen, max_new, escalate = SPILL_CELLS[mode]
+    over = {"capacity_factor": 8.0} if arch == MOE else {}
+    jcfg, jparams, cfg, params = _models(arch, vocab_size=256, **over)
+    eng = _cell_engine(cfg, params, I=2, W=2, tp=2, cap=cap, edges=edges,
+                       degrees=(1, 2), window=2, pipeline=pipeline,
+                       escalate=escalate)
+    ptrs = _pool_ptrs(eng)
+    prompt = np.random.default_rng(0).integers(0, 256, (plen,))
+    rid = eng.add_request(prompt, max_new_tokens=max_new)
+    eng.step()
+    assert not eng.cluster.waiting, "request must admit at step 1"
+    if mode != "oom":                       # oom admits pre-split (deg 2)
+        assert eng.cluster.active[rid].cp_degree == 1
+    bindings = _drive(eng, max_new + 32)
+    res, hp = eng.results[rid], eng.hot_path_stats
+    assert _pool_ptrs(eng) == ptrs and eng.aot.stats.donation_copies == 0
+    assert res.tokens == _jax_argmax(jcfg, jparams, prompt, res.tokens)
+    if mode == "oom":
+        assert res.oom and hp["oom_finishes"] == 1, hp
+        assert 0 < len(res.tokens) < max_new
+        assert hp["escalations"] + hp["spill_escalations"] >= 1, hp
+        return
+    assert not res.oom and len(res.tokens) == max_new
+    assert hp["escalations" if escalate else "spill_escalations"] >= 1, hp
+    assert hp["reshard_tokens"] > 0, hp
+    fin = [r for r in eng.finished if r.rid == rid][0]
+    assert len(fin.kv_binding) == 2, fin.kv_binding
+    assert len(bindings[rid]) == 1, bindings     # the KV moved, the MoE
+                                                 # binding did not
+
+
+@pytest.mark.parametrize("pipeline", [True, False],
+                         ids=["pipelined", "non-pipelined"])
+def test_compact_after_drain_equals_greedy(pipeline):
+    """engine_relaxation.py's ``compact`` cell: (4, 2), three requests; the
+    busiest MoE binding's instance is drained (its KV spreads), then
+    ``compact`` relaxes the widened bindings back inside their old ones;
+    every transcript equals greedy."""
+    jcfg, jparams, cfg, params = _models(vocab_size=256)
+    reqs = [(24, 12), (90, 12), (180, 12)]
+    eng = _cell_engine(cfg, params, I=4, W=4, tp=2, cap=4096,
+                       edges=(64, 160), degrees=(1, 2, 3), window=4,
+                       pipeline=pipeline)
+    ptrs = _pool_ptrs(eng)
+    cl = eng.cluster
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, (L,)) for L, _ in reqs]
+    for p, (_, n) in zip(prompts, reqs):
+        eng.add_request(p, max_new_tokens=n)
+    for _ in range(3):
+        eng.step()
+    assert not cl.waiting
+    victim = int(np.bincount([r.moe_binding for r in cl.active.values()],
+                             minlength=4).argmax())
+    assert eng.drain_instance(victim)
+    assert cl.page_table.instance_used_tokens(victim) == 0
+    pre = {r: sorted(cl.active[r].kv_binding) for r in cl.active}
+    compacted = eng.compact()
+    assert compacted, "post-drain compact must relax something"
+    for rec in compacted:
+        assert set(rec.new_binding) <= set(rec.old_binding), rec
+        assert sorted(rec.old_binding) == pre[rec.rid], rec
+    assert any(len(r.new_binding) < len(r.old_binding) or r.tokens_moved
+               for r in compacted)
+    _drive(eng, 60)
+    hp = eng.hot_path_stats
+    assert hp["compacts"] == 1 and hp["drains"] == 1, hp
+    assert hp["relaxations"] >= 1, hp
+    assert _pool_ptrs(eng) == ptrs and eng.aot.stats.donation_copies == 0
+    for rid, (_, n) in enumerate(reqs):
+        toks = eng.results[rid].tokens
+        assert len(toks) == n and not eng.results[rid].oom
+        assert toks == _jax_argmax(jcfg, jparams, prompts[rid], toks), rid
+
+
+def test_drain_evacuates_across_nodes_equals_greedy():
+    """engine_multinode.py's ``drain`` cell: (4, 2) in two nodes of two
+    instances; draining the long request's MoE binding moves its KV
+    across the node boundary (its node partner cannot hold it), the
+    drained instance ends empty, and both transcripts equal greedy."""
+    jcfg, jparams, cfg, params = _models(vocab_size=256)
+    eng = _cell_engine(cfg, params, I=4, W=2, tp=2, cap=64,
+                       edges=(100_000,), degrees=(1, 2), window=4)
+    cl = eng.cluster
+    assert cl.num_nodes == 2
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, (L,)) for L in (90, 20)]
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=10)
+    eng.step()
+    assert not cl.waiting
+    eng.step()
+    drained = cl.active[0].moe_binding
+    escs = eng.drain_instance(drained)
+    assert escs, "drain must evacuate resident KV"
+    assert any(n and not cl.same_node(s, d) for e in escs
+               for (s, d, n) in e.moves), escs
+    assert cl.page_table.instance_used_tokens(drained) == 0
+    assert drained in cl.dead_instances
+    _drive(eng, 50)
+    assert eng.hot_path_stats["drains"] == 1
+    for rid, p in enumerate(prompts):
+        toks = eng.results[rid].tokens
+        assert len(toks) == 10 and not eng.results[rid].oom
+        assert toks == _jax_argmax(jcfg, jparams, p, toks), rid
 
 
 # --------------------------------------------------------------------------- #

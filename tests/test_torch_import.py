@@ -84,7 +84,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented():
+    from dataclasses import replace
+
     from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.core.state import IterationPlan
     from repro_torch.models import transformer
     from repro_torch.serving.engine import NanoCPEngine
 
@@ -102,18 +105,17 @@ def test_unported_paths_raise_not_implemented():
     with pytest.raises(ValueError, match="backend"):
         NanoCPEngine(cfg, params, **kw, backend="nccl")
     eng = NanoCPEngine(cfg, params, **kw)
+    copies = IterationPlan(instances=[], copies=[(None, None)])
     for call, item in ((lambda: eng.add_audio_request(None, []), "item 12"),
-                       (lambda: eng.drain_instance(0), "item 7"),
-                       (lambda: eng.compact(), "item 7"),
+                       (lambda: eng.drain_instance(0, force=True), "item 13"),
+                       (lambda: eng._check_plan(copies), "item 13"),
                        (lambda: eng.fail_instance(0), "item 13"),
                        (lambda: eng.join_instance(1), "item 13"),
                        (lambda: eng.fork_request(0, 4), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             call()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        transformer.init_params(reduced(CONFIGS["tinyllama-1.1b"],
-                                        num_experts=4, num_experts_per_tok=2),
-                                device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        transformer.init_params(replace(cfg, family="ssm"), device="cpu")
 
 
 
