@@ -77,16 +77,42 @@ Phases, each printing one JSON line:
                of the expert ``bmm``s, of the all-to-all index ops
                (dispatch and combine) and of routing, and the paged kernel
                re-checked and re-timed on the largest call the runs made.
- 11. summary — ``{"kernels": [...]}``, then the last line
+ 11. qwen    — full-width Qwen1.5-0.5B (24 layers, q/k/v biases, tied
+               embeddings, vocab 151,936; one q head per kv head) at (4, 2)
+               pipelined and not and at (2, 4), checked teacher-forced.
+               Each of phases 11-13 starts from ``init_params(seed=0)``
+               with every bias drawn anew from N(0, 0.5) and every q/k
+               norm scale from 1 + N(0, 0.3) (seeded), so that a dropped
+               branch shows, and ends with the profile of phase 4 and the
+               paged kernel re-checked and re-timed on the largest call the
+               main path made.  Init and run peak memory, pool bytes, step
+               ms, tokens/s, prefill ms and launches are in its rows.
+ 12. llama4  — Llama-4-Scout at full width, 4 of its 48 layers (qk-norm,
+               16 experts top-1 plus a shared one, capacity factor 16), the
+               same three runs; every MoE call's fullest bin against its
+               capacity C at every prefill and decode step (a dropped token
+               fails the run; all MoE phases).
+ 13. deepseek — DeepSeek-V3 at full width, 1 of its 60 layers (MLA with a
+               576-wide latent at G 128, 256 experts top-8 plus a shared
+               one, capacity factor 32): (4, 2) and (2, 4) pipelined, then
+               fp8 and int8 latent pools under the tolerance contract, where
+               a decode step whose router chose other experts than the
+               forward's is counted, not held (``quant_contract``).
+ 14. summary — ``{"kernels": [...]}``, then the last line
                ``{"ok": true, "device": {...}}``.
 
 The kernel phase also holds the paged kernel at MLA's latent shape (G 40
 q heads over one latent head of Dk 288, Dv 256 as a view; f32/bf16 q,
 f32/bf16/fp8/int8 pages; edge rows with zero-length rows, MB = 1 and a
 split boundary) and flash at MLA's prefill shape (40 heads, Dk 96, Dv 64,
-S 2000); and both at Phi-3.5-MoE's head of 128 (paged G 4 over 4 kv heads
+S 2000); both at Phi-3.5-MoE's head of 128 (paged G 4 over 4 kv heads
 per device; flash 32 q / 8 kv heads, S 2000, timed; edge rows with split
-boundaries, fp8 pages and ragged tails).
+boundaries, fp8 pages and ragged tails); and both at DeepSeek-V3's shapes
+(paged over the 576-wide latent, v = k[..., :512], G 128 in four head
+groups, f32/bf16/fp8/int8 pages, timed; flash at 128 heads of Dk 192 /
+Dv 128, S 2000, timed), with edge rows at head-group boundaries (G 32,
+33, 64, 128), Qwen1.5's G 1 of hd 64, and flash at DeepSeek-V3's,
+Qwen1.5's and Llama-4-Scout's prefill heads.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
 without the repository's ``src/`` beside it, the script fails.
@@ -134,6 +160,11 @@ NEW_TOKENS = 16
 # 40 q heads on the one latent head; prefill q/k 96 (nope 64 + rope 32), v 64
 MLA_G, MLA_DK, MLA_DV = 40, 288, 256
 MLA_SCALE = (64 + 32) ** -0.5
+# DeepSeek-V3's: kv_lora 512 + rope 64, v the first 512 dims, 128 q heads on
+# the one latent head (four head groups of 32); prefill q/k 192 (nope 128 +
+# rope 64), v 128
+DS_G, DS_DK, DS_DV = 128, 576, 512
+DS_SCALE = (128 + 64) ** -0.5
 DENSE_LOGIT_TOL = 1e-4
 # the reference's quantized-serving contract (tests/integration/engine_quant.py)
 LOGIT_TOL = {"fp8": 1.5, "int8": 0.5}
@@ -144,6 +175,18 @@ PROFILE_STEPS = 5
 # float32 parameters, 5.2 GB), capacity factor 8 so that no token drops
 PHI_LAYERS = 8
 PHI_CAPACITY_FACTOR = 8.0
+# Llama-4-Scout: 4 of its 48 layers (a layer is 2.2e9 float32 parameters,
+# 8.8 GB); capacity factor E/k = 16, so C >= T and no token drops.
+# DeepSeek-V3: 1 of its 60 layers (its 256 experts are 45.1 GB in float32);
+# capacity factor E/k = 32: decode rows of an instance never drop (C = M;
+# at 8, C = ceil(M/4) = 1 would drop whenever two of an instance's rows
+# share one of their 8 experts), and prefill runs only the filled slots of
+# its C = T bins (``moe.moe_ffn``)
+LLAMA4_LAYERS, LLAMA4_CAPACITY_FACTOR = 4, 16.0
+DS_LAYERS, DS_CAPACITY_FACTOR = 1, 32.0
+# the phases' overwrite of the init's zero biases and unit q/k norm scales,
+# so that a dropped branch shows: N(0, BIAS_STD), 1 + N(0, NORM_STD)
+BIAS_STD, NORM_STD = 0.5, 0.3
 SHIELD_CYCLES = 4_000_000   # about 2 ms of device spin at the H100's clocks
 
 
@@ -262,21 +305,22 @@ def as_bf16_call(args):
     return (q.to(torch.bfloat16), kb, vb, bt, lengths)
 
 
-def mla_paged_inputs(dtype, gen):
+def mla_paged_inputs(dtype, gen, G=MLA_G, Dk=MLA_DK, Dv=MLA_DV):
     """MLA's paged call at MiniCPM3-4B's width on the (I=4, TP=2) mesh: one
     latent pool of I*tp*F' = 8 * 129 pages of 16 tokens x 288, v its first
     256 dims as a view, G = 40 q heads on the one latent head; a row's
     stripe holds up to ~350 tokens (a 2000-token prompt over three
-    instances, striped over two devices), and every fourth row is empty."""
+    instances, striped over two devices), and every fourth row is empty.
+    DeepSeek-V3's: G 128, Dk 576, Dv 512."""
     rows, MB, P = 64, 24, 8 * 129
-    q = torch.randn(rows, MLA_G, MLA_DK, device=DEV, generator=gen).to(dtype)
-    k = torch.randn(P, 16, 1, MLA_DK, device=DEV, generator=gen).to(dtype)
+    q = torch.randn(rows, G, Dk, device=DEV, generator=gen).to(dtype)
+    k = torch.randn(P, 16, 1, Dk, device=DEV, generator=gen).to(dtype)
     lengths = torch.randint(1, 351, (rows,), device=DEV, generator=gen,
                             dtype=torch.int32)
     lengths[::4] = 0
     bt = torch.randint(0, P, (rows, MB), device=DEV, generator=gen,
                        dtype=torch.int32)
-    return q, k, k[..., :MLA_DV], bt, lengths
+    return q, k, k[..., :Dv], bt, lengths
 
 
 def shares_storage(a, b) -> bool:
@@ -432,7 +476,24 @@ def run_kernel_phase(gen) -> dict:
         v = torch.randn(1, 2000, 8, 128, device=DEV, generator=gen).to(dtype)
         summary.setdefault("flash_fwd_moe", []).append(
             flash_row("flash_fwd_moe", q, k, v, None, 0, timed=True))
+    # --- DeepSeek-V3: the 576-wide latent call, and its prefill attention
+    #     (128 heads, Dk 192, Dv 128); a generator of their own, so the
+    #     rows above keep their inputs ---
+    gen_ds = torch.Generator(device=DEV).manual_seed(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = mla_paged_inputs(dtype, gen_ds, DS_G, DS_DK, DS_DV)
+        for a, sfx in ((args, ""), (quantize_pages(args, "fp8"), "_fp8"),
+                       (quantize_pages(args, "int8"), "_int8")):
+            add(paged_row(a, dtype, "synthetic", scale=DS_SCALE,
+                          name="paged_decode_ds" + sfx))
+        q = torch.randn(1, 2000, 128, 192, device=DEV, generator=gen_ds).to(dtype)
+        k = torch.randn(1, 2000, 128, 192, device=DEV, generator=gen_ds).to(dtype)
+        v = torch.randn(1, 2000, 128, 128, device=DEV, generator=gen_ds).to(dtype)
+        summary.setdefault("flash_fwd_ds", []).append(
+            flash_row("flash_fwd_ds", q, k, v, None, 0, timed=True))
+        del q, k, v
     run_edge_checks(gen)
+    run_wide_edge_checks()
     return summary
 
 
@@ -447,17 +508,104 @@ def edge_row(name: str, case: str, dtype, got, want) -> None:
 
 
 def flash_edge(gen, dtype, B, Sq, Skv, Dk, Dv, kv_len=None, q_offset=0,
-               causal=True, Hkv=4) -> None:
-    """One flash edge case at 32 q / ``Hkv`` kv heads."""
-    q = torch.randn(B, Sq, 32, Dk, device=DEV, generator=gen).to(dtype)
+               causal=True, Hkv=4, Hq=32) -> None:
+    """One flash edge case at ``Hq`` q / ``Hkv`` kv heads."""
+    q = torch.randn(B, Sq, Hq, Dk, device=DEV, generator=gen).to(dtype)
     k = torch.randn(B, Skv, Hkv, Dk, device=DEV, generator=gen).to(dtype)
     v = torch.randn(B, Skv, Hkv, Dv, device=DEV, generator=gen).to(dtype)
     kl = (None if kv_len is None
           else torch.tensor(kv_len, dtype=torch.int32, device=DEV))
     kw = dict(causal=causal, kv_len=kl, q_offset=q_offset)
-    edge_row("flash_fwd", f"B {B} Sq {Sq} Skv {Skv} Hkv {Hkv} Dk {Dk} Dv {Dv} "
+    edge_row("flash_fwd", f"B {B} Sq {Sq} Skv {Skv} Hq {Hq} Hkv {Hkv} Dk {Dk} Dv {Dv} "
              f"kv_len {kv_len} q_offset {q_offset} causal {causal}", dtype,
              fa.flash_attention(q, k, v, **kw), ref.flash_attention(q, k, v, **kw))
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def split_edges(args, label, kvs, dtype):
+    """Rows on, one past and two splits past a split boundary, full rows
+    between empty ones, and MB = 1; float pages, then ``kvs``.  Returns
+    the inputs with their edited lengths."""
+    q, k, v, bt, lengths = args
+    N, MB, page = q.shape[0], bt.shape[1], k.shape[1]
+    pps = pa.plan_split(N, k.shape[2], MB, _sms())
+    edge = [pps * page, 2 * pps * page, pps * page + 1, MB * page, 0,
+            MB * page, 0, 0, MB * page, 1]
+    lengths[:len(edge)] = torch.tensor(edge, dtype=torch.int32, device=DEV)
+    full = (q, k, v, bt, lengths)
+    one = (q, k, v, bt[:, :1], lengths.clamp(max=page))
+    for kv in (None, *kvs):
+        for case, a in ((f"{label}split edges (pps {pps})", full),
+                        (f"{label}MB = 1", one)):
+            a = a if kv is None else quantize_pages(a, kv)
+            kw = {} if kv is None else {"k_scale": a[5], "v_scale": a[6]}
+            edge_row(paged_variant(a[1]), case, dtype,
+                     pa.paged_decode_attention(*a[:5], **kw),
+                     ref.paged_decode_attention(*a[:5], **kw))
+    return full
+
+
+def latent_edge(dtype, case, args, scale, kv=None) -> None:
+    """One latent-pool edge case (v a view of k), ``kv`` quantized or not;
+    the plain version gets v as a copy."""
+    a = args if kv is None else quantize_pages(args, kv)
+    kw = {"scale": scale}
+    if kv is not None:
+        kw.update(k_scale=a[5], v_scale=a[6])
+    edge_row(paged_variant(a[1], a[2]), case, dtype,
+             pa.paged_decode_attention(*a[:5], **kw),
+             ref.paged_decode_attention(*a[:2], a[2].contiguous(), *a[3:5],
+                                        **kw))
+
+
+def run_wide_edge_checks() -> None:
+    """The edges of the shapes of DeepSeek-V3, Qwen1.5 and Llama-4-Scout,
+    from a generator of their own: the 576-wide latent (v = k[..., :512],
+    G 128 in four head groups) on split edges, MB = 1 and empty rows with
+    f32/bf16 pages and fp8/int8 codes; head-group boundaries at G 32, 33,
+    64 and 128; Qwen's G 1 of hd 64 (8 kv heads per device at (4, 2));
+    flash at DeepSeek-V3's prefill heads (128, Dk 192 / Dv 128) causal with
+    a q offset and a ragged tail, at Qwen's (16 of 64, MHA) and at
+    Llama-4-Scout's (40 q / 8 kv of 128)."""
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bt, lengths = mla_paged_inputs(dtype, gen, DS_G, DS_DK, DS_DV)
+        N, MB, page = q.shape[0], bt.shape[1], k.shape[1]
+        gh = pa.plan_heads(DS_G, DS_DK, DS_DV, k.element_size(), True, MB)
+        groups = -(-DS_G // gh)
+        pps = pa.plan_split(N, groups, MB, _sms())
+        edge = [0, pps * page, pps * page + 1, 2 * pps * page, MB * page, 0,
+                1, page]
+        lengths[:len(edge)] = torch.tensor(edge, dtype=torch.int32, device=DEV)
+        for kv in (None, "fp8", "int8"):
+            latent_edge(dtype, f"DS Dk 576 split edges (pps {pps}, {groups} "
+                        f"head groups of {gh})", (q, k, v, bt, lengths),
+                        DS_SCALE, kv)
+            latent_edge(dtype, "DS Dk 576 MB = 1",
+                        (q, k, v, bt[:, :1], lengths.clamp(max=page)),
+                        DS_SCALE, kv)
+        # head-group boundaries on the latent view, full and empty rows
+        for G in (32, 33, 64, 128):
+            qg = torch.randn(12, G, DS_DK, device=DEV, generator=gen).to(dtype)
+            ln = torch.tensor([0, 5 * page, 1, 3 * page + 7] * 3,
+                              dtype=torch.int32, device=DEV)
+            gh = pa.plan_heads(G, DS_DK, DS_DV, k.element_size(), True, 5)
+            latent_edge(dtype, f"DS latent G {G} ({-(-G // gh)} head groups "
+                        f"of {gh})", (qg, k, v, bt[:12, :5], ln), DS_SCALE,
+                        None if dtype == torch.float32 else "fp8")
+        # Qwen1.5 at (4, 2): 8 kv heads of 64 per device, G 1
+        split_edges(paged_inputs(dtype, gen, kg=8, hd=64, G=1),
+                    "Qwen G 1 hd 64 ", ("fp8",), dtype)
+        flash_edge(gen, dtype, 1, 65, 129, 192, 128, q_offset=64, Hq=128,
+                   Hkv=128)
+        flash_edge(gen, dtype, 2, 150, 150, 192, 128, kv_len=[150, 77],
+                   Hq=128, Hkv=128)
+        flash_edge(gen, dtype, 1, 2001, 2001, 64, 64, Hq=16, Hkv=16)
+        flash_edge(gen, dtype, 1, 200, 300, 128, 128, q_offset=100, Hq=40,
+                   Hkv=8)
 
 
 def run_edge_checks(gen) -> None:
@@ -469,36 +617,12 @@ def run_edge_checks(gen) -> None:
     at MiniCPM3-4B's (288 / 256, G 40, f32/bf16/fp8 pages); flash at
     Sq/Skv one off the 64-row tiles, kv_len inside one tile, bf16 head dims
     16-256, and Dk != Dv."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def split_edges(args, label, kvs):
-        """Rows on, one past and two splits past a split boundary, full
-        rows between empty ones, and MB = 1; float pages, then ``kvs``.
-        Returns the inputs with their edited lengths."""
-        q, k, v, bt, lengths = args
-        N, MB, page = q.shape[0], bt.shape[1], k.shape[1]
-        pps = pa.plan_split(N, k.shape[2], MB, sms)
-        edge = [pps * page, 2 * pps * page, pps * page + 1, MB * page, 0,
-                MB * page, 0, 0, MB * page, 1]
-        lengths[:len(edge)] = torch.tensor(edge, dtype=torch.int32, device=DEV)
-        full = (q, k, v, bt, lengths)
-        one = (q, k, v, bt[:, :1], lengths.clamp(max=page))
-        for kv in (None, *kvs):
-            for case, a in ((f"{label}split edges (pps {pps})", full),
-                            (f"{label}MB = 1", one)):
-                a = a if kv is None else quantize_pages(a, kv)
-                kw = {} if kv is None else {"k_scale": a[5], "v_scale": a[6]}
-                edge_row(paged_variant(a[1]), case, dtype,
-                         pa.paged_decode_attention(*a[:5], **kw),
-                         ref.paged_decode_attention(*a[:5], **kw))
-        return full
-
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, bt, lengths = split_edges(paged_inputs(dtype, gen), "",
-                                           ("fp8", "int8"))
+                                           ("fp8", "int8"), dtype)
         # Phi-3.5-MoE at (4, 2): 4 kv heads of 128 per device, G = 4
         split_edges(paged_inputs(dtype, gen, kg=4, hd=128, G=4),
-                    "Phi Dk 128 G 4 ", ("fp8",))
+                    "Phi Dk 128 G 4 ", ("fp8",), dtype)
         N, page = q.shape[0], k.shape[1]
         # MLA's layout: one latent pool, v = k[..., :32], copied by nobody,
         # on the split-edge lengths above
@@ -513,7 +637,7 @@ def run_edge_checks(gen) -> None:
         # rows on and one past a split boundary, empty rows, MB = 1
         q, k, v, bt, lengths = mla_paged_inputs(dtype, gen)
         N, MB = q.shape[0], bt.shape[1]
-        pps = pa.plan_split(N, 1, MB, sms)
+        pps = pa.plan_split(N, 1, MB, _sms())
         edge = [0, pps * page, pps * page + 1, 2 * pps * page, MB * page, 0,
                 1, page]
         lengths[:len(edge)] = torch.tensor(edge, dtype=torch.int32, device=DEV)
@@ -587,22 +711,29 @@ def teacher_forced_check(cfg, params, prompts, results, tag,
 
 
 def quant_contract(cfg, params, prompts, eng, kv_dtype: str, tag: str,
-                   new_tokens: int) -> dict:
+                   new_tokens: int, routes: dict | None = None) -> dict:
     """The reference's contract for quantized pools (engine_quant.py): the
     first token equals greedy forward's; every decode step's logits are
     within LOGIT_TOL of the forward teacher-forced on the engine's
     transcript; an emitted token differs from the forward's argmax only
     where its top-2 margin is within the bound, and such near-ties are at
-    most half the steps."""
+    most half the steps.
+
+    For an MoE model ``routes`` gives each request's expert choices at
+    each decode step (a set per MoE layer).  A step whose router chose
+    other experts than the forward's at that position (an expert flip: a
+    random router moves its choice under a small change of its input, and
+    one expert moves the logits past the bound) is counted and measured
+    but held to neither rule; flips must stay at most half the steps."""
     tol = LOGIT_TOL[kv_dtype]
-    worst, ties, total = 0.0, 0, 0
+    worst, ties, total, flips, worst_flip = 0.0, 0, 0, 0, 0.0
     for rid, prompt in enumerate(prompts):
         toks = eng.results[rid].tokens
         if len(toks) != new_tokens:
             fail(f"{tag}: request {rid} emitted {len(toks)} tokens")
         seq = torch.as_tensor(np.concatenate([prompt, toks[:-1]]),
                               device=DEV)[None]
-        with torch.no_grad():
+        with torch.no_grad(), ExpertLoads() as fwd:
             logits, _ = transformer.forward(cfg, params, seq)
         ref_lg = logits[0, len(prompt) - 1:].float()            # [new, V]
         if not torch.isfinite(ref_lg).all():
@@ -618,25 +749,45 @@ def quant_contract(cfg, params, prompts, eng, kv_dtype: str, tag: str,
         if not torch.isfinite(got).all():
             fail(f"{tag}: non-finite engine logits for request {rid}")
         delta = (got - ref_s).abs().amax(dim=-1)
+        held = torch.ones_like(delta, dtype=torch.bool)
+        if routes is not None:
+            if len(routes.get(rid, ())) != len(steps):
+                fail(f"{tag}: request {rid} has routes for "
+                     f"{len(routes.get(rid, ()))} of {len(steps)} steps")
+            chosen = [idx[0] for _, _, _, _, idx in fwd.calls]  # [T, k] per layer
+            for t in range(len(steps)):
+                pos = len(prompt) + t
+                held[t] = all(set(c[pos].tolist()) == e
+                              for c, e in zip(chosen, routes[rid][t]))
+            flips += int((~held).sum())
+            if not held.all():
+                worst_flip = max(worst_flip, float(delta[~held].max()))
+        delta = torch.where(held, delta, torch.zeros_like(delta))
         worst = max(worst, float(delta.max()))
         if bool((delta > tol).any()):
-            j = int(delta.argmax())
-            fail(f"{tag}: request {rid} step {j}: |dlogit| {float(delta[j])} "
+            t = int(delta.argmax())
+            fail(f"{tag}: request {rid} step {t}: |dlogit| {float(delta[t])} "
                  f"> {tol}")
         top2 = ref_s.topk(2, dim=-1)
         margin = top2.values[:, 0] - top2.values[:, 1]
-        miss = torch.as_tensor(toks[1:], device=DEV) != top2.indices[:, 0]
+        miss = held & (torch.as_tensor(toks[1:], device=DEV)
+                       != top2.indices[:, 0])
         if bool((miss & (margin > tol)).any()):
-            j = int((miss & (margin > tol)).nonzero()[0])
-            fail(f"{tag}: request {rid} step {j}: token {toks[j + 1]} != "
-                 f"reference argmax {int(top2.indices[j, 0])} at margin "
-                 f"{float(margin[j])} > {tol}")
+            t = int((miss & (margin > tol)).nonzero()[0])
+            fail(f"{tag}: request {rid} step {t}: token {toks[t + 1]} != "
+                 f"reference argmax {int(top2.indices[t, 0])} at margin "
+                 f"{float(margin[t])} > {tol}")
         ties += int(miss.sum())
         total += len(steps)
     if ties > total // 2:
         fail(f"{tag}: near-ties {ties} of {total} steps")
-    return {"worst_dlogit": worst, "logit_tol": tol, "near_ties": ties,
-            "steps_checked": total}
+    if flips > total // 2:
+        fail(f"{tag}: expert flips at {flips} of {total} steps")
+    row = {"worst_dlogit": worst, "logit_tol": tol, "near_ties": ties,
+           "steps_checked": total}
+    if routes is not None:
+        row.update(expert_flips=flips, worst_dlogit_at_flips=worst_flip)
+    return row
 
 
 class LargestPagedCall:
@@ -674,6 +825,63 @@ class LargestPagedCall:
         pa.paged_decode_attention = self._launch
 
 
+class ExpertLoads:
+    """While active, wraps ``moe.group_by_expert`` and keeps, for each call
+    (every MoE layer of a prefill forward, ``moe.moe_ffn``, or of a decode
+    step), the rows of its fullest bin (a device scalar, read once after
+    the run, so the steps do not wait on it) beside the capacity C: a token
+    is dropped iff a bin holds more than C rows.  ``step`` tags the
+    calls; each keeps its expert indices too."""
+
+    def __init__(self):
+        self.step, self.kind, self.calls = 0, "decode", []
+        self._group, self._ffn = moe.group_by_expert, moe.moe_ffn
+
+    def _record(self, topk_idx, num_experts, capacity):
+        rows = moe.bin_rows(topk_idx, num_experts).amax()
+        self.calls.append((self.step, self.kind, rows, capacity, topk_idx))
+        return self._group(topk_idx, num_experts, capacity)
+
+    def _prefill(self, *args, **kwargs):
+        self.kind = "prefill"
+        try:
+            return self._ffn(*args, **kwargs)
+        finally:
+            self.kind = "decode"
+
+    def __enter__(self):
+        moe.group_by_expert, moe.moe_ffn = self._record, self._prefill
+        return self
+
+    def __exit__(self, *exc):
+        moe.group_by_expert, moe.moe_ffn = self._group, self._ffn
+
+    def decode_routes(self, dispatched: dict) -> dict:
+        """Each request's expert choices at each of its decode steps (a set
+        per MoE layer), from ``dispatched``: step -> the (rid, instance,
+        slot) rows of the decode iteration that step dispatched."""
+        layers = {}
+        for step, kind, _, _, idx in self.calls:
+            if kind == "decode":
+                layers.setdefault(step, []).append(idx)
+        routes = {}
+        for step in sorted(dispatched):
+            for rid, i, b in dispatched[step]:
+                routes.setdefault(rid, []).append(
+                    [set(idx[i, b].tolist()) for idx in layers[step]])
+        return routes
+
+    def by_step(self) -> list:
+        """[{"step": i, "prefill": [[fullest bin, C], ...], "decode":
+        [...]}, ...] for the steps that made MoE calls."""
+        rows = torch.stack([c[2] for c in self.calls]).tolist()
+        out = {}
+        for (step, kind, _, cap, _), n in zip(self.calls, rows):
+            out.setdefault(step, {"step": step}).setdefault(kind, []).append(
+                [n, cap])
+        return [out[k] for k in sorted(out)]
+
+
 def make_engine(cfg, params, prompts, pipeline: bool, *,
                 new_tokens: int = NEW_TOKENS, **kw) -> NanoCPEngine:
     """The main path's engine: virtual (I=4, TP=2) mesh, the prompts queued.
@@ -705,7 +913,9 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
     after the third step (a drain, a compaction); ``expect_stats`` gives
     minimums of ``hot_path_stats``; with ``oom`` every request must end in
     a request-level OOM with a greedy prefix.  MoE runs record the rows per
-    MoE binding (B_s) of every dispatched step and its capacity C."""
+    MoE binding (B_s) of every dispatched step and its capacity C, and for
+    every prefill and decode step each MoE call's fullest bin against its
+    C (``expert_load``); a dropped token fails the run."""
     quantized = quant.is_quantized(kv_dtype)
     tag = tag or ("pipelined" if pipeline else "non-pipelined")
     torch.cuda.reset_peak_memory_stats()
@@ -722,12 +932,18 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
     cap = LargestPagedCall() if quantized else None
     step_ms, prefill_us, steady, host_us, rounds = [], 0.0, [], {}, 0
     moe_steps = []
+    loads = ExpertLoads()
+    dispatched = {}     # step -> (rid, instance, slot) of its decode rows
+    if quantized and cfg.is_moe and not pipeline:
+        fail(f"{tag}: a quantized MoE run reads its decode routes from the "
+             "pipelined engine's in-flight iteration")
     t_run = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), loads:
         while eng.pending and len(step_ms) < 200:
             inspect = cap is not None and len(step_ms) < CAPTURE_STEPS
             if mid_run is not None and len(step_ms) == 3:
                 mid_run(eng)
+            loads.step = len(step_ms)
             t0 = time.perf_counter()
             if inspect:
                 with cap:
@@ -735,6 +951,9 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
             else:
                 eng.step()
             dt = (time.perf_counter() - t0) * 1e3
+            if quantized and cfg.is_moe and eng._inflight is not None:
+                dispatched[loads.step] = [(rid, i, b) for rid, _, i, b, _
+                                          in eng._inflight.slots]
             step_ms.append(dt)
             rounds = max(rounds, eng.last_rounds_used)
             if cfg.is_moe and "dispatch_us" in eng.timings:
@@ -789,8 +1008,9 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
         if short:
             fail(f"{tag}: requests {short} did not end in an OOM finish")
     if quantized:
-        row.update(quant_contract(cfg, params, prompts, eng, kv_dtype, tag,
-                                  new_tokens))
+        row.update(quant_contract(
+            cfg, params, prompts, eng, kv_dtype, tag, new_tokens,
+            loads.decode_routes(dispatched) if cfg.is_moe else None))
         if eng.last_bucket[-1] != kv_dtype:
             fail(f"{tag}: bucket key {eng.last_bucket} lacks the kv dtype")
         eng.cluster.page_table.frame_audit()
@@ -807,6 +1027,15 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
     if moe_steps:
         row["moe_steps"] = moe_steps
         row["launches_per_step"] = {k: v / steps for k, v in launches.items()}
+    if cfg.is_moe:
+        # [fullest bin, C] of every MoE call, by step and kind
+        row["expert_load"] = loads.by_step()
+        dropped = [(e["step"], k, p) for e in row["expert_load"]
+                   for k in ("prefill", "decode") for p in e.get(k, ())
+                   if p[0] > p[1]]
+        if dropped:
+            fail(f"{tag}: tokens dropped (step, kind, [fullest bin, C]): "
+                 f"{dropped}")
     decode_tokens = sum(len(r.tokens) - 1 for r in eng.results.values())
     decode_s = sum(step_ms) / 1e3 - prefill_us / 1e6
     row.update({
@@ -942,7 +1171,11 @@ def profile_engine(cfg, params, prompts) -> tuple:
            "kernel_launches_per_step": sum(e.count for e in events)
                                        / PROFILE_STEPS,
            "top_kernels": [{"name": e.key[:80], "count": e.count,
-                            "device_us": dev_us(e)} for e in top]}
+                            "device_us": dev_us(e)} for e in top],
+           # the paged kernel and its split merge
+           "paged_share": sum(dev_us(e) for e in events
+                              if "paged_split_kernel" in e.key
+                              or "merge_kernel" in e.key) / device_us}
     if cfg.is_moe:
         row["device_ms_per_step"] = device_us / 1e3 / PROFILE_STEPS
         row["moe_share"] = {k: v * 1e3 / device_us
@@ -1112,6 +1345,22 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     moe_runs = run_moe_phase(ksum)
+    mesh_2x4 = dict(num_instances=2, instances_per_node=2, tp=4,
+                    buckets=CPBuckets(edges=(256,), degrees=(1, 2)))
+    three = (("pipelined", True, {}), ("non-pipelined", False, {}),
+             ("2x4 pipelined", True, mesh_2x4))
+    qwen = run_archetype_phase("qwen", get_config("qwen1.5-0.5b"), ksum,
+                               three, name="paged_decode_qwen")
+    llama4 = run_archetype_phase(
+        "llama4", replace(get_config("llama4-scout-17b-a16e"),
+                          num_layers=LLAMA4_LAYERS,
+                          capacity_factor=LLAMA4_CAPACITY_FACTOR),
+        ksum, three, name="paged_decode_llama4")
+    ds = run_archetype_phase(
+        "deepseek", replace(get_config("deepseek-v3"), num_layers=DS_LAYERS,
+                            capacity_factor=DS_CAPACITY_FACTOR),
+        ksum, (("pipelined", True, {}), ("2x4 pipelined", True, mesh_2x4)),
+        name="paged_decode_ds", quant=("fp8", "int8"))
 
     src, replaces = ("src/repro_torch/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_attention.py:36")
@@ -1137,7 +1386,19 @@ def main() -> None:
             ("paged_decode_moe", src, replaces,
              moe_runs[0]["launches"]["paged_decode"]),
             ("flash_fwd_moe", fsrc, freplaces,
-             moe_runs[0]["launches"]["flash_fwd"])):
+             moe_runs[0]["launches"]["flash_fwd"]),
+            ("paged_decode_qwen", src, replaces,
+             qwen["pipelined"]["launches"]["paged_decode"]),
+            ("paged_decode_llama4", src, replaces,
+             llama4["pipelined"]["launches"]["paged_decode"]),
+            ("paged_decode_ds", src, replaces,
+             ds["pipelined"]["launches"]["paged_decode"]),
+            ("paged_decode_ds_fp8", src, replaces,
+             ds["fp8"]["launches"]["paged_decode"]),
+            ("paged_decode_ds_int8", src, replaces,
+             ds["int8"]["launches"]["paged_decode"]),
+            ("flash_fwd_ds", fsrc, freplaces,
+             ds["pipelined"]["launches"]["flash_fwd"])):
         rows = ksum[name]
         # the timing at the main path's shapes: the captured paged call, and
         # the 2000-token prompt's prefill attention; bf16 q beside it
@@ -1238,6 +1499,76 @@ def run_moe_phase(ksum: dict) -> list:
     gc.collect()
     torch.cuda.empty_cache()
     return runs
+
+
+def perturb_attention(params) -> int:
+    """Overwrite every q/k/v bias with N(0, BIAS_STD) and every q/k norm
+    scale with 1 + N(0, NORM_STD), from a seeded generator: the init makes
+    them 0 and 1, where a dropped branch would not show.  Returns the
+    number of leaves overwritten."""
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    n = 0
+    for lp in params["blocks"]["layers"]:
+        for name, t in lp["mixer"].items():
+            if name not in ("bq", "bk", "bv", "q_norm", "k_norm"):
+                continue
+            noise = torch.randn(t.shape, generator=gen, device=DEV)
+            t.copy_(noise.mul_(BIAS_STD) if name[0] == "b"
+                    else noise.mul_(NORM_STD).add_(1.0))
+            n += 1
+    return n
+
+
+def run_archetype_phase(phase: str, cfg, ksum: dict, runs, *, name: str,
+                        quant=()) -> dict:
+    """Phases 11-13: one model at full width (depth as ``cfg`` cuts it),
+    random float32 weights (seed 0) with perturbed biases and q/k norm
+    scales, through the engine on the main path's traffic: each of
+    ``runs`` ((tag, pipeline, engine settings)) checked teacher-forced,
+    each of ``quant``'s kv dtypes under the tolerance contract with its
+    largest paged call re-checked and re-timed (summary name ``name``_kv),
+    then the profile of phase 4 and the paged kernel re-checked and
+    re-timed on the largest call the main path made (``name``).  Returns
+    the runs' rows by tag (and by kv dtype).  The weights are freed."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device=DEV,
+                                     dtype=torch.float32)
+    perturbed = perturb_attention(params)
+    torch.cuda.synchronize()
+    if not perturbed and (cfg.qkv_bias or cfg.qk_norm or cfg.q_lora_rank):
+        fail(f"{phase}: no bias or norm leaf to perturb")
+    n_params = sum(t.numel() for t in _leaves(params))
+    emit({"phase": phase, "model": cfg.name, "layers": cfg.num_layers,
+          "capacity_factor": cfg.capacity_factor if cfg.is_moe else None,
+          "params": n_params, "param_gb": n_params * 4 / 1e9,
+          "perturbed_leaves": perturbed, "init_s": time.perf_counter() - t0,
+          "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (L,)) for L in PROMPT_LENS]
+    out = {tag: run_engine(cfg, params, prompts, pipeline,
+                           tag=f"{phase} {tag}", **kw)
+           for tag, pipeline, kw in runs}
+
+    def recheck(args, sc, label, row_name):
+        for a in (args, as_bf16_call(args)):
+            row = paged_row(a, a[0].dtype, label, scale=sc, name=row_name)
+            emit(row)
+            ksum.setdefault(row_name, []).append(row)
+
+    for kv_dtype in quant:
+        out[kv_dtype] = run = run_engine(cfg, params, prompts, True,
+                                         kv_dtype=kv_dtype,
+                                         tag=f"{phase} {kv_dtype} pipelined")
+        recheck(*run.pop("captured"), f"{phase} main path",
+                f"{name}_{kv_dtype}")
+    args, sc = profile_engine(cfg, params, prompts)
+    profile_prefill(cfg, params, prompts[int(np.argmax(PROMPT_LENS))])
+    recheck(args, sc, f"{phase} main path", name)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _leaves(tree):

@@ -226,13 +226,22 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
             m["wq"] = pad_q(mx["wq"], dn + dr).contiguous()
         return m
 
+    def gqa_mixer(mx):
+        m = {"wq": pad_q(mx["wq"], hd).contiguous(),
+             "wk": tile_kv(mx["wk"], hd).contiguous(),
+             "wv": tile_kv(mx["wv"], hd).contiguous(),
+             "wo": row_chunks(pad_q_rows(mx["wo"], hd))}
+        if cfg.qkv_bias:        # laid out like the columns they are added to
+            m.update(bq=pad_q(mx["bq"], hd).contiguous(),
+                     bk=tile_kv(mx["bk"], hd).contiguous(),
+                     bv=tile_kv(mx["bv"], hd).contiguous())
+        if cfg.qk_norm:         # per-head scales: the same on every head
+            m.update(q_norm=mx["q_norm"], k_norm=mx["k_norm"])
+        return m
+
     def conv_layer(lp, kind):
         mx, ffn = lp["mixer"], lp["ffn"]
-        mixer = mla_mixer(mx) if cfg.is_mla else {
-            "wq": pad_q(mx["wq"], hd).contiguous(),
-            "wk": tile_kv(mx["wk"], hd).contiguous(),
-            "wv": tile_kv(mx["wv"], hd).contiguous(),
-            "wo": row_chunks(pad_q_rows(mx["wo"], hd))}
+        mixer = mla_mixer(mx) if cfg.is_mla else gqa_mixer(mx)
         if kind["ffn"] != "moe":
             ffn = {"wi_gate": ffn["wi_gate"], "wi_up": ffn["wi_up"],
                    "wo": row_chunks(ffn["wo"])}
@@ -536,9 +545,17 @@ def _attn_layer(cfg: ModelConfig, dims: DecodeDims, lp: dict, x, pools,
     kg = kv_group_size(cfg, tp)
     mx = lp["mixer"]
     h = L.apply_norm(cfg, lp["ln1"], x)
-    q = (h @ mx["wq"]).reshape(I, M, tp, hl, hd).transpose(1, 2)
-    k = (h @ mx["wk"]).reshape(I, M, tp, kg, hd).transpose(1, 2)
-    v = (h @ mx["wv"]).reshape(I, M, tp, kg * hd).transpose(1, 2)
+    q, k, v = h @ mx["wq"], h @ mx["wk"], h @ mx["wv"]
+    if cfg.qkv_bias:
+        q = q + mx["bq"].to(q.dtype)
+        k = k + mx["bk"].to(k.dtype)
+        v = v + mx["bv"].to(v.dtype)
+    q = q.reshape(I, M, tp, hl, hd).transpose(1, 2)
+    k = k.reshape(I, M, tp, kg, hd).transpose(1, 2)
+    v = v.reshape(I, M, tp, kg * hd).transpose(1, 2)
+    if cfg.qk_norm:             # per head, before rope
+        q = L.rms_norm_vec(q, mx["q_norm"])
+        k = L.rms_norm_vec(k, mx["k_norm"])
     pos = tbl["slot_pos"][:, None, :]                           # [I, 1, M]
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta).reshape(I, tp, M, kg * hd)

@@ -14,9 +14,9 @@
 //   k_scale, v_scale [P]  float32    per-page scales, quantized pools only
 //
 // The G = Hq / Hkv query heads of kv head h are q[n, h*G : (h+1)*G].  Head
-// dims go up to 384: MLA decodes over one latent "head" of kv_lora_rank +
+// dims go up to 640: MLA decodes over one latent "head" of kv_lora_rank +
 // rope dims (MiniCPM3-4B: 256 + 32 = 288, G = 40 q heads, v the view
-// k[..., :256]).
+// k[..., :256]; DeepSeek-V3: 512 + 64 = 576, G = 128, v = k[..., :512]).
 //
 // Types: q and out are Tq (float or bfloat16).  Pages are Tkv: Tq itself,
 // or a quantized pool of fp8 e4m3 or int8 codes with one float32 scale per
@@ -28,10 +28,14 @@
 // limit, so the products stay on CUDA cores.  To move bytes at the card's
 // rate the design keeps many pages in flight on every SM:
 //
-// * Split-KV.  The grid is (N, Hkv, S): block (n, h, s) takes pages
-//   [s*pps, (s+1)*pps) of row n, where the wrapper picks pages_per_split
-//   (pps) from the static shapes so that full rows give several blocks per
-//   SM.  For S > 1 the blocks write float32 partials (out [N,Hq,S,Dv], lse
+// * Split-KV and head groups.  The grid is (N, Hkv * HG, S): block
+//   (n, h * HG + j, s) takes q heads [j*gh, (j+1)*gh) of kv head h's G and
+//   pages [s*pps, (s+1)*pps) of row n.  The wrapper picks the heads per
+//   group (gh; HG = ceil(G / gh) groups) and the pages per split (pps) from
+//   the static shapes: gh so that a group's accumulators and q fit one
+//   block (all G heads but at DeepSeek-V3's G 128 x Dv 512, which takes 4
+//   groups of 32, each reading the row's pages again, mostly from L2), pps
+//   so that full rows give several blocks per SM.  For S > 1 the blocks write float32 partials (out [N,Hq,S,Dv], lse
 //   [N,Hq,S]) into the caller's scratch and merge_kernel, launched from the
 //   same C entry, merges them by their log-sum-exp into out (q's dtype) and
 //   lse, as ref.merge_lse does.  A split at or past its row's length is
@@ -39,7 +43,7 @@
 //   merge skips it.  For S == 1 the first kernel writes the result itself.
 // * A ring of pages in flight.  A block of 8 warps walks its split in
 //   units of 32 tokens (a unit may span pages, whose ids and scales the
-//   block loads into shared memory once).  Three units sit in a
+//   block loads into shared memory once).  Up to three units sit in a
 //   shared-memory ring, filled by cp.async copies of 16 bytes (16 fp8/int8
 //   codes, 8 bf16 or 4 f32 values; 8 or 4 bytes where the strides are not
 //   16-byte multiples), a warp per token and its lanes over the token's K
@@ -47,6 +51,8 @@
 //   stages K and V and passes scores and probabilities between the three
 //   steps of a unit; every staged value is read once into registers,
 //   where q, the partial dots and the (head, 4-column) accumulators live.
+//   Where v is a view of k (MLA's latent pool), each token's latent row is
+//   staged once and V is read as its first Dv values: half the ring.
 // * Latency, not bytes, sets the time at decode sizes: a split walks a
 //   few units one after another, so each unit's steps, its copies
 //   included, are spread over all 256 threads, and its loops stay rolled.
@@ -54,11 +60,11 @@
 //   each token's page's k scale multiplies its score and its v scale its
 //   probability, so no dequantized pool exists in device memory.
 // * Wide heads.  Each score lane dots kChunks 4-value chunks of a K row
-//   (a template parameter: 2 up to Dk 256, 3 up to Dk 384), so MLA's
-//   288-wide latent keeps q in registers as the narrow heads do; its ring
-//   drops to two stages where three do not fit the shared memory.  MLA's
-//   v is a view of k: the kernel stages the shared 256 dims twice, once as
-//   K and once as V.
+//   (a template parameter: 2 up to Dk 256, 3 up to Dk 384, 5 up to Dk 640)
+//   against kHeads heads' q held in registers (8 heads, 4 at 5 chunks), so
+//   MLA's 288- and 576-wide latents keep q in registers as the narrow
+//   heads do; the ring drops to two stages where three do not fit the
+//   shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,10 +77,10 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kUnit = 32;       // tokens per ring stage: one per lane
-constexpr int kPS = kUnit + 4;  // p_s row stride: a warp's 8 heads, 8 bank groups
+constexpr int kPS = kUnit + 4;  // p_s row stride: a pass's heads, 8 bank groups
 constexpr int kMaxStages = 3;   // ring depth
 constexpr int kMaxPairs = 16;   // (head, 4-column) accumulators per thread
-constexpr int kMaxChunks = 3;   // 4-value K chunks per score lane: Dk <= 384
+constexpr int kMaxChunks = 5;   // 4-value K chunks per score lane: Dk <= 640
 constexpr int kThreads = 256;   // 8 warps per block
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -161,12 +167,16 @@ struct Args {
   float* part_lse;        //        [N][Hq][S]
   long long k_sp, k_st, k_sh, v_sp, v_st, v_sh;
   int Hq, Hkv, Dk, Dv, page, MB, pps, S;
+  int gh, HG;             // q heads per group, groups per kv head
+  int shared_kv;          // v is a view of k: each latent row is staged once
   int nstages;            // ring depth, 2..kMaxStages
   int gran;               // cp.async size in bytes: 16, 8 or 4
   int tpt;                // scores: lanes per token (kChunks*tpt 4-value chunks cover Dk)
   int tgroups;            // p @ v: token groups (kThreads / tgroups threads each)
   int page_shift;         // log2(page) when page is a power of two, else -1
-  int rowk, rowv;         // bytes of one staged K / V row (16-byte multiples)
+  int rowk, rowv;         // bytes of one staged K / V row (16-byte multiples;
+                          // rowv = rowk where shared_kv)
+  int stage_bytes;        // one ring stage: kUnit K rows (and V rows)
   int head_bytes;         // shared bytes before the ring
   float scale;
 };
@@ -179,11 +189,12 @@ __device__ __forceinline__ int2 split_tokens(const Args& a, int length, int s) {
   return make_int2(t_begin, t_end);
 }
 
-// Block (n, h, s): tokens [t_begin, t_end) of row n, kv head h, walked by
-// kThreads threads in units of kUnit tokens (a unit may span pages).  Per
-// unit, three steps with a barrier after each:
+// Block (n, h * HG + j, s): tokens [t_begin, t_end) of row n, the G q
+// heads [j*gh, j*gh + G) of kv head h (G = gh but in a last, smaller
+// group), walked by kThreads threads in units of kUnit tokens (a unit may
+// span pages).  Per unit, three steps with a barrier after each:
 //  - scores: threads (token, dim lane) dot each staged K value once
-//    against 8 heads' q held in registers (kChunks 4-value chunks per
+//    against kHeads heads' q held in registers (kChunks 4-value chunks per
 //    lane) and sum across their lanes by shuffles;
 //  - softmax: a warp per head, lane = token, with the running max and sum
 //    in shared memory;
@@ -193,36 +204,38 @@ __device__ __forceinline__ int2 split_tokens(const Args& a, int length, int s) {
 // The groups' accumulators are summed once, at the end.  Every loop that
 // runs once per unit stays rolled, so the unit's code is small.
 //
-// Shared memory: q_s [G][Dk4*4] f32 (q*scale, zero-padded), p_s [G][kPS]
-// scores, then probabilities (times the v scale), c_s [G] this unit's
-// corrections, m_s and l_s [G] the running max and sum, bt_s [pps] the
+// Shared memory: q_s [gh][Dk4*4] f32 (q*scale, zero-padded), p_s [gh][kPS]
+// scores, then probabilities (times the v scale), c_s [gh] this unit's
+// corrections, m_s and l_s [gh] the running max and sum, bt_s [pps] the
 // split's page ids, ks_s/vs_s [pps] their scales; then the ring: nstages x
-// (K [kUnit][rowk], V [kUnit][rowv]).
+// (K [kUnit][rowk], V [kUnit][rowv]), or K alone where V is its view.
 template <typename Tq, typename Tkv, int kPairs, int kChunks>
 __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
   constexpr bool kQuant = sizeof(Tkv) == 1;
   constexpr int kWarps = kThreads / 32;
+  constexpr int kHeads = kChunks > 3 ? 4 : 8;   // q heads per score pass
   extern __shared__ __align__(16) char smem[];
   const int n = blockIdx.x;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / a.HG;
+  const int hg = blockIdx.y - h * a.HG;
   const int s = blockIdx.z;
-  const int G = a.Hq / a.Hkv;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int Dk4 = (a.Dk + 3) >> 2;
   const int Dv4 = (a.Dv + 3) >> 2;
-  const int hq0 = h * G;
+  const int hq0 = h * (a.Hq / a.Hkv) + hg * a.gh;     // the group's first q head
+  const int G = min(a.gh, a.Hq / a.Hkv - hg * a.gh);  // the group's q heads
   const int npairs = G * Dv4;
   const int b0 = s * a.pps;                        // the split's first page
   const int npg = min(a.pps, a.MB - b0);
 
   float* q_s = reinterpret_cast<float*>(smem);
-  float* p_s = q_s + G * Dk4 * 4;
-  float* c_s = p_s + G * kPS;
-  float* m_s = c_s + G;
-  float* l_s = m_s + G;
-  int* bt_s = reinterpret_cast<int*>(l_s + G);
+  float* p_s = q_s + a.gh * Dk4 * 4;
+  float* c_s = p_s + a.gh * kPS;
+  float* m_s = c_s + a.gh;
+  float* l_s = m_s + a.gh;
+  int* bt_s = reinterpret_cast<int*>(l_s + a.gh);
   float* ks_s = reinterpret_cast<float*>(bt_s + a.pps);
   float* vs_s = ks_s + a.pps;
   char* ring = smem + a.head_bytes;
@@ -248,12 +261,13 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
   }
   __syncthreads();   // bt_s
 
-  const int stage_bytes = kUnit * (a.rowk + a.rowv);
+  const int stage_bytes = a.stage_bytes;
+  const int voff = a.shared_kv ? 0 : kUnit * a.rowk;   // V rows in a stage
   const int nunits = (t_end - t_begin + kUnit - 1) / kUnit;
   const int kbytes = a.Dk * (int)sizeof(Tkv);
   const int vbytes = a.Dv * (int)sizeof(Tkv);
   const int kch = ((kbytes + 15) & ~15) / a.gran;   // copies per staged row
-  const int vch = ((vbytes + 15) & ~15) / a.gran;
+  const int vch = a.shared_kv ? 0 : ((vbytes + 15) & ~15) / a.gran;
 
   // stage unit u into ring slot st: a warp per token, its lanes over the
   // token's K and V chunks; only valid tokens are copied (and read)
@@ -261,7 +275,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
     const int t0 = t_begin + u * kUnit;
     const int valid = min(kUnit, t_end - t0);
     char* sk = ring + st * stage_bytes;
-    char* sv = sk + kUnit * a.rowk;
+    char* sv = sk + voff;
 #pragma unroll 1
     for (int t = warp; t < valid; t += kWarps) {
       const int tok = t0 + t;
@@ -322,16 +336,16 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
     cp_async_commit();
 
     const char* sk = ring + (u % NS) * stage_bytes;
-    const char* sv = sk + kUnit * a.rowk;
+    const char* sv = sk + voff;
     const int t0 = t_begin + u * kUnit;
     const int valid = min(kUnit, t_end - t0);
 
-    // scores: K row t's 4-value chunks c + e*tpt against 8 heads' q
+    // scores: K row t's 4-value chunks c + e*tpt against kHeads heads' q
 #pragma unroll 1
-    for (int g0 = 0; g0 < G; g0 += 8) {
-      float4 qr[8][kChunks];
+    for (int g0 = 0; g0 < G; g0 += kHeads) {
+      float4 qr[kHeads][kChunks];
 #pragma unroll
-      for (int hh = 0; hh < 8; ++hh)
+      for (int hh = 0; hh < kHeads; ++hh)
 #pragma unroll
         for (int e = 0; e < kChunks; ++e) {
           const int d4 = c_dim + e * tpt;
@@ -341,9 +355,9 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
         }
 #pragma unroll 1
       for (int t = t_dim; t < kUnit; t += kThreads / tpt) {
-        float sd[8];
+        float sd[kHeads];
 #pragma unroll
-        for (int hh = 0; hh < 8; ++hh) sd[hh] = 0.f;
+        for (int hh = 0; hh < kHeads; ++hh) sd[hh] = 0.f;
         if (t < valid) {
 #pragma unroll
           for (int e = 0; e < kChunks; ++e) {
@@ -351,20 +365,20 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
             if (d4 < Dk4) {
               const float4 x = load4<Tkv>(sk + t * a.rowk, d4);
 #pragma unroll
-              for (int hh = 0; hh < 8; ++hh) sd[hh] = dot4(qr[hh][e], x, sd[hh]);
+              for (int hh = 0; hh < kHeads; ++hh) sd[hh] = dot4(qr[hh][e], x, sd[hh]);
             }
           }
         }
 #pragma unroll 1
         for (int o = tpt >> 1; o > 0; o >>= 1)
 #pragma unroll
-          for (int hh = 0; hh < 8; ++hh) sd[hh] += __shfl_xor_sync(0xffffffffu, sd[hh], o);
+          for (int hh = 0; hh < kHeads; ++hh) sd[hh] += __shfl_xor_sync(0xffffffffu, sd[hh], o);
         if (c_dim == 0) {
           float ksc = 1.f;
           if constexpr (kQuant)
             if (t < valid) ksc = ks_s[(t0 + t) / a.page - b0];
 #pragma unroll
-          for (int hh = 0; hh < 8; ++hh)
+          for (int hh = 0; hh < kHeads; ++hh)
             if (g0 + hh < G) p_s[(g0 + hh) * kPS + t] = t < valid ? sd[hh] * ksc : kNegInf;
         }
       }
@@ -511,8 +525,8 @@ template <typename Tq, typename Tkv, int kPairs, int kChunks>
 int launch(Args a, int N, cudaStream_t stream) {
   if (sizeof(Tkv) == 1 && (a.k_scale == nullptr || a.v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int G = a.Hq / a.Hkv;
-  const int Dk4 = (a.Dk + 3) / 4, pairs = G * ((a.Dv + 3) / 4);
+  const int gh = a.gh;
+  const int Dk4 = (a.Dk + 3) / 4, pairs = gh * ((a.Dv + 3) / 4);
   // the copy size: the largest of 16/8/4 bytes that every base and stride allow
   const uintptr_t al = reinterpret_cast<uintptr_t>(a.k) | reinterpret_cast<uintptr_t>(a.v) |
                        (uintptr_t)a.k_sp | (uintptr_t)a.k_st | (uintptr_t)a.k_sh |
@@ -529,9 +543,10 @@ int launch(Args a, int N, cudaStream_t stream) {
   while (kPairs == 1 && a.tgroups < 8 && 2 * a.tgroups * pairs <= kThreads) a.tgroups *= 2;
   // one 16-byte pad per staged row spreads a warp's row reads over the banks
   a.rowk = round16(a.Dk * (int)sizeof(Tkv)) + 16;
-  a.rowv = round16(a.Dv * (int)sizeof(Tkv)) + 16;
-  a.head_bytes = round16((int)sizeof(float) * (G * Dk4 * 4 + G * kPS + 3 * G + 3 * a.pps));
-  const size_t stage = (size_t)kUnit * (a.rowk + a.rowv);
+  a.rowv = a.shared_kv ? a.rowk : round16(a.Dv * (int)sizeof(Tkv)) + 16;
+  a.head_bytes = round16((int)sizeof(float) * (gh * Dk4 * 4 + gh * kPS + 3 * gh + 3 * a.pps));
+  a.stage_bytes = kUnit * (a.rowk + (a.shared_kv ? 0 : a.rowv));
+  const size_t stage = (size_t)a.stage_bytes;
 
   static int optin = 0;   // the card's opt-in shared memory per block
   cudaError_t e;
@@ -554,7 +569,7 @@ int launch(Args a, int N, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
-  dim3 grid(N, a.Hkv, a.S);
+  dim3 grid(N, a.Hkv * a.HG, a.S);
   paged_split_kernel<Tq, Tkv, kPairs, kChunks><<<grid, kThreads, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.S == 1) return (int)e;
@@ -563,21 +578,22 @@ int launch(Args a, int N, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// 2 or kMaxChunks 4-value K chunks per score lane: the fewest that cover
-// Dk with at most 32 lanes per token
+// 2, 3 or kMaxChunks 4-value K chunks per score lane: the fewest that
+// cover Dk with at most 32 lanes per token
 template <typename Tq, typename Tkv, int kPairs>
 int launch_chunks(const Args& a, int N, cudaStream_t s) {
   const int Dk4 = (a.Dk + 3) / 4;
   if (Dk4 <= 2 * 32) return launch<Tq, Tkv, kPairs, 2>(a, N, s);
+  if (Dk4 <= 3 * 32) return launch<Tq, Tkv, kPairs, 3>(a, N, s);
   if (Dk4 <= kMaxChunks * 32) return launch<Tq, Tkv, kPairs, kMaxChunks>(a, N, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // 1, 4 or kMaxPairs (head, 4-column) accumulators per thread: the fewest
-// that cover G * Dv/4 pairs (fewer registers, more blocks per SM)
+// that cover a group's gh * Dv/4 pairs (fewer registers, more blocks per SM)
 template <typename Tq, typename Tkv>
 int launch_shape(const Args& a, int N, cudaStream_t s) {
-  const int pairs = (a.Hq / a.Hkv) * ((a.Dv + 3) / 4);
+  const int pairs = a.gh * ((a.Dv + 3) / 4);
   if (pairs <= kThreads) return launch_chunks<Tq, Tkv, 1>(a, N, s);
   if (pairs <= 4 * kThreads) return launch_chunks<Tq, Tkv, 4>(a, N, s);
   if (pairs <= kMaxPairs * kThreads) return launch_chunks<Tq, Tkv, kMaxPairs>(a, N, s);
@@ -601,19 +617,26 @@ int launch_q(int kv_type, const Args& a, int N, cudaStream_t s) {
 // (k_scale/v_scale [P] float32 required).  Page strides are in elements of
 // the page type; the last dim of each pool is contiguous.  pps is the
 // number of pages per split; for S = ceil(MB / pps) > 1, scratch holds
-// N*Hq*S*(Dv + 1) floats (the partials), else it may be null.  Returns
-// cudaGetLastError() after the launches (0 on success).  The caller checks
-// shapes, types and layouts.
+// N*Hq*S*(Dv + 1) floats (the partials), else it may be null.  gh is the
+// number of q heads per head group (1..G).  shared_kv = 1 says v_pages is
+// a view of k_pages (same base and strides, Dv <= Dk): each row is then
+// staged once.  Returns cudaGetLastError() after the launches (0 on
+// success).  The caller checks shapes, types and layouts.
 extern "C" int paged_decode(const void* q, const void* k_pages, const void* v_pages,
                             const void* k_scale, const void* v_scale,
                             const void* block_tables, const void* lengths, void* out,
                             void* lse, void* scratch, int N, int Hq, int Hkv, int Dk,
-                            int Dv, int page, int MB, int pps, long long k_sp,
+                            int Dv, int page, int MB, int pps, int gh,
+                            int shared_kv, long long k_sp,
                             long long k_st, long long k_sh, long long v_sp,
                             long long v_st, long long v_sh, float scale, int q_type,
                             int kv_type, void* stream) {
   if (N == 0) return 0;
-  if (pps < 1 || MB < 1 || Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  if (pps < 1 || MB < 1 || Hkv < 1 || Hq % Hkv || gh < 1 || gh > Hq / Hkv)
+    return (int)cudaErrorInvalidValue;
+  if (shared_kv && (k_pages != v_pages || k_sp != v_sp || k_st != v_st || k_sh != v_sh ||
+                    Dv > Dk))
+    return (int)cudaErrorInvalidValue;
   const long long es = kv_type == 0 ? (q_type == 0 ? 4 : 2) : 1;
   Args a{};
   a.q = q;
@@ -630,6 +653,9 @@ extern "C" int paged_decode(const void* q, const void* k_pages, const void* v_pa
   a.Hq = Hq; a.Hkv = Hkv; a.Dk = Dk; a.Dv = Dv; a.page = page; a.MB = MB;
   a.pps = pps;
   a.S = (MB + pps - 1) / pps;
+  a.gh = gh;
+  a.HG = (Hq / Hkv + gh - 1) / gh;
+  a.shared_kv = shared_kv;
   a.scale = scale;
   if (a.S > 1) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;

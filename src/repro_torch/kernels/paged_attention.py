@@ -12,22 +12,27 @@ matter; the products stay on CUDA cores.  At decode sizes (a few MB per
 call) its time is set by latency instead: each block walks its split's
 units one after another, behind barriers, and two launches.  The design:
 
-* split-KV: the grid is (rows, kv heads, splits); ``plan_split`` picks the
-  pages per split from the static shapes alone (no host sync), so that
-  full rows give at least eight blocks per SM.  With more than one split
-  the blocks write float32 partials into one scratch tensor that this
-  wrapper allocates, and a second small kernel merges them by their
-  log-sum-exp (``split_plain`` is the plain mirror of that partition);
-* a shared-memory ring keeps three 32-token units of pages in flight per
-  block, filled by 16-byte ``cp.async`` copies; each staged K value is
-  read once, against 8 heads' q held in registers, and the output
-  accumulators live in registers; scores and probabilities pass between
-  the steps of a unit through shared memory;
+* split-KV and head groups: the grid is (rows, kv heads x head groups,
+  splits); ``plan_heads`` picks the q heads per group and ``plan_split``
+  the pages per split from the static shapes alone (no host sync).  A
+  group holds all G q heads of its kv head unless their accumulators or
+  q outgrow one block (DeepSeek-V3's latent: G 128 x Dv 512 takes 4 groups
+  of 32, each reading the pages again); the splits give at least eight
+  blocks per SM with full rows.  With more than one split the blocks write
+  float32 partials into one scratch tensor that this wrapper allocates,
+  and a second small kernel merges them by their log-sum-exp
+  (``split_plain`` is the plain mirror of that partition);
+* a shared-memory ring keeps up to three 32-token units of pages in
+  flight per block, filled by 16-byte ``cp.async`` copies; each staged K
+  value is read once, against 8 heads' q held in registers (4 past Dk
+  384), and the output accumulators live in registers; scores and
+  probabilities pass between the steps of a unit through shared memory;
 * strided pools: the pages are passed with their own page, token and head
   strides for k and for v (v may be a view of k, as MLA's latent pool
-  is: Dk 288, Dv 256 for MiniCPM3-4B, G = 40 q heads on one latent head),
-  never copied.  A pool's last dim must be contiguous and its base
-  and strides multiples of 4 bytes (16 for full-width copies); any other
+  is: Dk 288, Dv 256 for MiniCPM3-4B, G = 40 q heads on one latent head;
+  Dk 576, Dv 512, G 128 for DeepSeek-V3), never copied, and a latent row
+  is staged once.  A pool's last dim must be contiguous and its base and
+  strides multiples of 4 bytes (16 for full-width copies); any other
   layout raises.
 
 The DCP step calls it ONCE per attention layer for the whole virtual mesh:
@@ -62,11 +67,14 @@ LAUNCHES_BY_PAGE: dict = {}
 _Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 # page dtype of a quantized pool -> the C entry's kv_type code
 _QUANT_PAGES = {torch.float8_e4m3fn: 1, torch.int8: 2}
-# K rows are dotted in at most 3 four-value chunks per lane of 32 (the
-# kernel's kMaxChunks): MLA's 288-wide latent (MiniCPM3-4B) fits
-MAX_HEAD_DIM = 384
+# K rows are dotted in at most 5 four-value chunks per lane of 32 (the
+# kernel's kMaxChunks): DeepSeek-V3's 576-wide latent fits
+MAX_HEAD_DIM = 640
 # the kernel's (head, 4-column) accumulators: 16 per thread, 256 threads
 MAX_PAIRS = 16 * 256
+# shared memory a block may opt in to on sm_90 (H100, H200): 227 KB
+SMEM_OPTIN = 232_448
+_KPS = 36          # the kernel's score row stride (kPS), in floats
 # blocks per SM that ``plan_split`` aims for when every row is full: a
 # split's units run one after another, so shorter splits finish sooner
 BLOCKS_PER_SM = 8
@@ -76,7 +84,7 @@ BLOCKS_PER_SM = 8
 def _bind():
     lib = build.load("paged_decode")
     fn = lib.paged_decode
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                    + [ctypes.c_longlong] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
@@ -85,11 +93,12 @@ def _bind():
 
 
 def plan_split(N: int, Hkv: int, MB: int, sms: int) -> int:
-    """Pages per split for a call of N rows, Hkv kv heads and MB block-table
-    columns on a card with ``sms`` SMs.  It takes the fewest splits that
-    give BLOCKS_PER_SM blocks per SM when every row is full (one page per
-    split where MB cannot reach that), then spreads MB evenly over them.
-    Static shapes only, so the decode step never waits on the device."""
+    """Pages per split for a call of N rows, Hkv kv heads (times their
+    head groups) and MB block-table columns on a card with ``sms`` SMs.
+    It takes the fewest splits that give BLOCKS_PER_SM blocks per SM when
+    every row is full (one page per split where MB cannot reach that),
+    then spreads MB evenly over them.  Static shapes only, so the decode
+    step never waits on the device."""
     want = -(-BLOCKS_PER_SM * sms // max(N * Hkv, 1))
     if want <= 1:
         return MB
@@ -99,12 +108,55 @@ def plan_split(N: int, Hkv: int, MB: int, sms: int) -> int:
     return -(-MB // -(-MB // widest))
 
 
+def smem_bytes(gh: int, Dk: int, Dv: int, page_bytes: int, shared: bool,
+               pps: int) -> int:
+    """Shared memory of one block with the kernel's shallowest ring, as its
+    ``launch`` counts it: q, scores and softmax state of ``gh`` heads, the
+    split's page ids and scales, and two 32-token units of K rows (and V
+    rows unless v is a view of k), each row padded by 16 bytes."""
+    r16 = lambda x: -(-x // 16) * 16
+    head = r16(4 * (gh * -(-Dk // 4) * 4 + gh * _KPS + 3 * gh + 3 * pps))
+    rows = r16(Dk * page_bytes) + 16 + (0 if shared else r16(Dv * page_bytes) + 16)
+    return head + max(2 * 32 * rows, 16 * 256)
+
+
+def plan_heads(G: int, Dk: int, Dv: int, page_bytes: int, shared: bool,
+               MB: int) -> int:
+    """q heads per head group for kv heads of G q heads: the fewest groups
+    (``ceil(G / gh)``, balanced) whose accumulators (gh * Dv/4 pairs) fit
+    MAX_PAIRS and whose block fits SMEM_OPTIN with a two-stage ring
+    (counting MB page ids, the most a split can hold).  Static shapes
+    only."""
+    for groups in range(1, G + 1):
+        gh = -(-G // groups)
+        if (gh * -(-Dv // 4) <= MAX_PAIRS and smem_bytes(
+                gh, Dk, Dv, page_bytes, shared, MB) <= SMEM_OPTIN):
+            return gh
+    raise ValueError(f"paged_decode_attention: Dk {Dk} / Dv {Dv} rows of "
+                     f"{page_bytes} bytes do not fit a block even one head "
+                     f"at a time{'' if shared else ' (v is not a view of k)'}")
+
+
 def split_plain(q, k_pages, v_pages, block_tables, lengths, pages_per_split,
-                *, scale=None, k_scale=None, v_scale=None):
-    """The plain mirror of the kernel's split-KV partition: each split's
-    (out, lse) over its slice of the block table and of the lengths, then
-    their LSE merge.  Equals ``plain`` up to rounding; split s sees the
-    tokens [s*pps*page, (s+1)*pps*page) of each row."""
+                *, heads_per_group=None, scale=None, k_scale=None,
+                v_scale=None):
+    """The plain mirror of the kernel's partition: each (kv head, head
+    group, split) block's (out, lse) over its q heads and its slice of the
+    block table and of the lengths, then the splits' LSE merge.  Equals
+    ``plain`` up to rounding; split s sees the tokens [s*pps*page,
+    (s+1)*pps*page) of each row, group j of a kv head its q heads
+    [j*gh, (j+1)*gh)."""
+    Hkv = k_pages.shape[2]
+    G = q.shape[1] // Hkv
+    gh = heads_per_group or G
+    if gh < G:
+        parts = [split_plain(q[:, h * G + g0:h * G + min(g0 + gh, G)],
+                             k_pages[:, :, h:h + 1], v_pages[:, :, h:h + 1],
+                             block_tables, lengths, pages_per_split,
+                             scale=scale, k_scale=k_scale, v_scale=v_scale)
+                 for h in range(Hkv) for g0 in range(0, G, gh)]
+        return (torch.cat([o for o, _ in parts], 1),
+                torch.cat([l for _, l in parts], 1))
     page, MB = k_pages.shape[1], block_tables.shape[1]
     outs, lses = [], []
     for b0 in range(0, MB, pages_per_split):
@@ -168,7 +220,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     block_tables [N, MB] int32; lengths [N] int32.  q is float32 or
     bfloat16; the pages are in q's dtype, or fp8 e4m3 / int8 codes with
     ``k_scale``/``v_scale`` [P] float32.  Any head dims up to
-    ``MAX_HEAD_DIM`` = 384 (no padding).  The pools are used in place with
+    ``MAX_HEAD_DIM`` = 640 (no padding).  The pools are used in place with
     their own strides (see the module note).  Returns out [N, Hq, Dv] in
     q's dtype and lse [N, Hq] float32.
     """
@@ -201,10 +253,10 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     devs = {t.device for t in (q, k_pages, v_pages, block_tables, lengths)}
     if len(devs) != 1:
         raise ValueError(f"paged_decode_attention: tensors on {devs}")
-    G = Hq // Hkv
-    if G * -(-Dv // 4) > MAX_PAIRS:
-        raise ValueError(f"paged_decode_attention: G*Dv = {G}*{Dv} too wide")
     k_st, v_st = _page_strides("k_pages", k_pages), _page_strides("v_pages", v_pages)
+    # v a view of k (MLA's latent): the kernel stages each row once
+    shared = (v_pages.data_ptr() == k_pages.data_ptr() and v_st == k_st
+              and Dv <= Dk)
     q, block_tables, lengths = q.contiguous(), block_tables.contiguous(), lengths.contiguous()
     ks_ptr = vs_ptr = None
     if kv_type:
@@ -212,7 +264,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
         ks_ptr, vs_ptr = k_scale.data_ptr(), v_scale.data_ptr()
     scale = scale if scale is not None else Dk ** -0.5
     MB = block_tables.shape[1]
-    pps = plan_split(N, Hkv, MB, _sm_count(q.device.index or 0))
+    gh = plan_heads(Hq // Hkv, Dk, Dv, k_pages.element_size(), shared, MB)
+    groups = -(-(Hq // Hkv) // gh)
+    pps = plan_split(N, Hkv * groups, MB, _sm_count(q.device.index or 0))
     S = -(-MB // pps)
     out = torch.empty((N, Hq, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((N, Hq), dtype=torch.float32, device=q.device)
@@ -223,7 +277,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
                  ks_ptr, vs_ptr, block_tables.data_ptr(), lengths.data_ptr(),
                  out.data_ptr(), lse.data_ptr(),
                  None if scratch is None else scratch.data_ptr(),
-                 N, Hq, Hkv, Dk, Dv, page, MB, pps, *k_st, *v_st,
+                 N, Hq, Hkv, Dk, Dv, page, MB, pps, gh, int(shared),
+                 *k_st, *v_st,
                  float(scale), _Q_TYPES[q.dtype], kv_type, stream)
     build.check(rc, "paged_decode")
     LAUNCHES += 1

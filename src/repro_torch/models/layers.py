@@ -11,8 +11,10 @@ from ..configs.base import ModelConfig
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0, *,
                dtype=torch.bfloat16, device="cuda") -> torch.Tensor:
     std = shape[in_axis] ** -0.5
-    return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=device) * std).to(dtype)
+    # scaled in place: one float32 buffer per leaf (an expert stack of
+    # DeepSeek-V3's is 15 GB)
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device).mul_(std).to(dtype)
 
 
 def make_norm_params(cfg: ModelConfig, dim: int, device="cuda") -> dict:

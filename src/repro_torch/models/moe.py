@@ -127,9 +127,26 @@ def expert_ffn(p: dict, tok: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["wo"])
 
 
+def bin_rows(idx: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """The rows routed to each expert: idx [..., T, k] -> [..., E] int64."""
+    flat = idx.reshape(-1, idx.shape[-2] * idx.shape[-1]).long()
+    rows = torch.zeros((flat.shape[0], num_experts), dtype=torch.long,
+                       device=idx.device)
+    rows.scatter_add_(1, flat, torch.ones_like(flat))
+    return rows.reshape(*idx.shape[:-2], num_experts)
+
+
 def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """x [..., T, D] -> [..., T, D]; each leading index groups on its own,
-    with capacity C = ``capacity(cfg, T)``."""
+    with capacity C = ``capacity(cfg, T)``.
+
+    A bin fills from its first slot, so no row lies past the fullest bin:
+    the expert FFNs run on the first Cb = min(C, fullest bin) slots of
+    every bin, and the result is the reference's, whose other E*(C - Cb)
+    slots are empty.  Reading Cb waits on the device once (prefill only;
+    the decode step never does).  At C >= T, as where no token may drop
+    (DeepSeek-V3 at C = T = 2000: 14.7 GB per [E*C, D] buffer), this is
+    what keeps the buffers to the tokens' size."""
     *lead, T, D = x.shape
     E = cfg.num_experts
     C = capacity(cfg, T)
@@ -137,11 +154,20 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     src_token, slot_of = group_by_expert(idx, E, C)
     xb = x.reshape(-1, T, D)
     B = xb.shape[0]
-    expert_in = take_rows(xb, src_token.reshape(B, E * C))     # [B, E*C, D]
-    tok = expert_in.reshape(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
-    out = expert_ffn(p, tok).reshape(E, B, C, D).transpose(0, 1)
-    out = combine(w.reshape(B, T, -1), out.reshape(B, E * C, D),
-                  slot_of.reshape(B, T, -1)).reshape(*lead, T, D)
+    Cb = max(1, min(C, int(bin_rows(idx, E).max())))
+    src = src_token.reshape(B, E, C)[..., :Cb].reshape(B, E * Cb)
+    expert_in = take_rows(xb, src)                              # [B, E*Cb, D]
+    tok = expert_in.reshape(B, E, Cb, D).transpose(0, 1).reshape(E, B * Cb, D)
+    del expert_in
+    out = expert_ffn(p, tok).reshape(E, B, Cb, D).transpose(0, 1)
+    del tok
+    # slot e*C + j of a kept row (j < Cb) is e*Cb + j here; E*C (dropped)
+    # becomes E*Cb, the zero row
+    slot = slot_of.reshape(B, T, -1).long()
+    slot = torch.where(slot < E * C, slot // C * Cb + slot % C,
+                       torch.full_like(slot, E * Cb))
+    out = combine(w.reshape(B, T, -1), out.reshape(B, E * Cb, D),
+                  slot).reshape(*lead, T, D)
     if cfg.num_shared_experts:
         out = out + layers.apply_mlp(cfg, p["shared"], x)
     return out.to(x.dtype)

@@ -19,7 +19,8 @@ from . import layers, mla, moe
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense GQA, MLA and MoE families (so far)."""
+    """The port serves every decoder-only attention family: dense GQA (with
+    qkv bias or qk-norm), MLA and MoE."""
     if cfg.family in ("ssm", "hybrid") or not cfg.has_attention:
         raise NotImplementedError("SSM/hybrid models are not ported yet "
                                   "(ROADMAP queue 1 item 11)")
@@ -55,11 +56,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                 "ffn": make_ffn(gen, cfg, **kw)}
 
     # each block is written into preallocated stacked leaves as soon as it
-    # is made: the peak is the stack plus one block, never two stacks
+    # is made: the peak is the stack plus one block, never two stacks (and
+    # a single block is its own stack, a view)
     pattern = cfg.block_pattern()
     stacked = None
     for bi in range(cfg.num_blocks):
         blk = [layer_params(kind) for kind in pattern]
+        if cfg.num_blocks == 1:
+            stacked = _map(blk, lambda t: t[None])
+            break
         if stacked is None:
             stacked = _map(blk, lambda t: t.new_empty((cfg.num_blocks,
                                                        *t.shape)))

@@ -4,7 +4,10 @@ dims that are not powers of two up to 256, Dk != Dv, several page sizes
 and G, ragged Sq/Skv, ``kv_len`` and ``q_offset``, float32 and bfloat16
 queries, and fp8 / int8 quantized pages with per-page scales; and MLA's
 shapes at MiniCPM3-4B's width (paged decode over the 288-wide latent with
-G = 40 and v = k[..., :256]; flash prefill at Dk 96 / Dv 64 / 40 heads).
+G = 40 and v = k[..., :256]; flash prefill at Dk 96 / Dv 64 / 40 heads),
+DeepSeek-V3's (the 576-wide latent, v = k[..., :512], at G 128 in head
+groups, and at the group boundaries G 32, 33, 64; flash prefill at 128
+heads of Dk 192 / Dv 128) and Qwen1.5's MHA decode (G 1, hd 64).
 
 These tests need an NVIDIA GPU and ``nvcc`` (marker ``cuda``); without a
 card they skip.  Run them on the card with
@@ -197,8 +200,8 @@ def test_ops_send_cuda_tensors_to_kernels():
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    q = torch.randn(2, 8, 400, device="cuda")
-    kp = torch.randn(4, 16, 2, 400, device="cuda")
+    q = torch.randn(2, 8, 700, device="cuda")
+    kp = torch.randn(4, 16, 2, 700, device="cuda")
     bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
     ln = torch.ones(2, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
@@ -485,3 +488,123 @@ def test_flash_mla_prefill_shape(B, S, kv_len, dtype):
     """MLA's materialised prefill: 40 heads, Dk 96 (nope 64 + rope 32) !=
     Dv 64, causal, at ragged lengths off the tiles."""
     _flash_case(B, S, S, 40, 40, 96, 64, dtype, kv_len, 0, True, seed=S)
+
+
+# --------------------------------------------------------------------------- #
+# DeepSeek-V3's latent: kv_lora 512 + rope 64, G 128 in head groups
+# --------------------------------------------------------------------------- #
+DS_DK, DS_DV = 576, 512
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "fp8", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("G", [128, 64, 33, 32])
+def test_paged_ds_latent_head_groups(G, dtype, kv_dtype):
+    """G q heads over one latent head of 576, v = k[..., :512] (a view,
+    staged once; quantized pools pass one scale per page for both), the
+    scale (nope + rope)^-0.5: the heads run in ``plan_heads`` groups (4 of
+    32 at G 128, 2 of 17 at G 33, one at G 32).  Rows of length 0, one
+    token, one full page, on and one past a split boundary, and spanning
+    every split."""
+    N, page, MB, P = 12, 16, 12, 96
+    gh = pa.plan_heads(G, DS_DK, DS_DV, 1 if kv_dtype else
+                       torch.tensor([], dtype=dtype).element_size(), True, MB)
+    assert -(-G // gh) == {128: 4, 64: 2, 33: 2, 32: 1}[G]
+    pps = _pps(N, -(-G // gh), MB)
+    g = torch.Generator(device="cuda").manual_seed(576 + G)
+    q = torch.randn(N, G, DS_DK, device="cuda", generator=g).to(dtype)
+    kw = {}
+    if kv_dtype:
+        k, ks = _quantized_pages(P, page, 1, DS_DK, kv_dtype, g)
+        kw = {"k_scale": ks, "v_scale": ks}
+    else:
+        k = torch.randn(P, page, 1, DS_DK, device="cuda", generator=g).to(dtype)
+    v = k[..., :DS_DV]
+    bt = torch.randint(0, P, (N, MB), device="cuda", generator=g,
+                       dtype=torch.int32)
+    ln = torch.randint(1, MB * page + 1, (N,), device="cuda", generator=g,
+                       dtype=torch.int32)
+    edge = [0, 1, page, pps * page, pps * page + 1, MB * page, 0]
+    ln[:len(edge)] = torch.tensor(edge, dtype=torch.int32, device="cuda")
+    scale = (128 + 64) ** -0.5
+    n0 = pa.LAUNCHES
+    o, l = pa.paged_decode_attention(q, k, v, bt, ln, scale=scale, **kw)
+    o2, l2 = ref.paged_decode_attention(q, k, v.contiguous(), bt, ln,
+                                        scale=scale, **kw)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == n0 + 1
+    assert o.shape == (N, G, DS_DV)
+    _close(o, o2, dtype)
+    torch.testing.assert_close(l, l2, atol=1e-4, rtol=1e-4)
+    assert (o[ln == 0] == 0).all() and (l[ln == 0] == -1e30).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_ds_latent_one_page_rows(dtype):
+    """MB = 1 at DeepSeek-V3's latent: one split, four head groups."""
+    N, page = 6, 16
+    g = torch.Generator(device="cuda").manual_seed(577)
+    q = torch.randn(N, 128, DS_DK, device="cuda", generator=g).to(dtype)
+    k = torch.randn(32, page, 1, DS_DK, device="cuda", generator=g).to(dtype)
+    bt = torch.randint(0, 32, (N, 1), device="cuda", generator=g,
+                       dtype=torch.int32)
+    ln = torch.tensor([16, 0, 1, 7, 15, 16], dtype=torch.int32, device="cuda")
+    o, l = pa.paged_decode_attention(q, k, k[..., :DS_DV], bt, ln)
+    o2, l2 = ref.paged_decode_attention(q, k, k[..., :DS_DV].contiguous(),
+                                        bt, ln)
+    torch.cuda.synchronize()
+    _close(o, o2, dtype)
+    torch.testing.assert_close(l, l2, atol=1e-4, rtol=1e-4)
+    assert (o[1] == 0).all() and (l[1] == -1e30).all()
+
+
+def test_paged_ds_latent_needs_v_as_a_view():
+    """A float32 576-wide K beside a separate 512-wide V does not fit a
+    block even one head at a time: the wrapper raises before the launch."""
+    q = torch.randn(2, 8, DS_DK, device="cuda")
+    k = torch.randn(4, 16, 1, DS_DK, device="cuda")
+    v = torch.randn(4, 16, 1, DS_DV, device="cuda")
+    bt = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+    ln = torch.ones(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="do not fit"):
+        pa.paged_decode_attention(q, k, v, bt, ln)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_qwen_mha_g1(dtype, kv_dtype):
+    """Qwen1.5's decode at (4, 2): 8 kv heads of 64 per device with one q
+    head each (G 1), rows on split edges, empty and full."""
+    N, MB, page = 24, 10, 16
+    q, k, v, bt, g = _paged_case(N, 8, 8, 64, 64, page, MB, dtype, seed=64)
+    pps = _pps(N, 8, MB)
+    ln = torch.randint(1, MB * page + 1, (N,), device="cuda", generator=g,
+                       dtype=torch.int32)
+    edge = [0, pps * page, pps * page + 1, MB * page, 1]
+    ln[:len(edge)] = torch.tensor(edge, dtype=torch.int32, device="cuda")
+    kw = {}
+    if kv_dtype:
+        k, ks = _quantized_pages(k.shape[0], page, 8, 64, kv_dtype, g)
+        v, vs = _quantized_pages(k.shape[0], page, 8, 64, kv_dtype, g)
+        kw = {"k_scale": ks, "v_scale": vs}
+    o, l = pa.paged_decode_attention(q, k, v, bt, ln, **kw)
+    o2, l2 = ref.paged_decode_attention(q, k, v, bt, ln, **kw)
+    torch.cuda.synchronize()
+    _close(o, o2, dtype)
+    torch.testing.assert_close(l, l2, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Skv,kv_len,q_offset", [
+    (1, 65, 129, None, 64), (2, 150, 150, [150, 77], 0),
+    (1, 300, 1000, None, 700)])
+def test_flash_ds_prefill_shape(B, Sq, Skv, kv_len, q_offset, dtype):
+    """DeepSeek-V3's materialised prefill: 128 heads, Dk 192 (nope 128 +
+    rope 64) != Dv 128, causal with a nonzero q offset (a chunk's start)
+    and ragged kv lengths."""
+    _flash_case(B, Sq, Skv, 128, 128, 192, 128, dtype, kv_len, q_offset, True,
+                seed=Sq + q_offset)

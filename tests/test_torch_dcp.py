@@ -13,7 +13,10 @@ scatter must equal the port's numpy loader and
 
 MoE configs run at capacity factor 8.0, as the reference's own MoE tests
 do: no token is dropped, so decode (capacity per instance) and prefill
-(capacity per request) route alike.  At I >= 4 the reference's own MoE DCP
+(capacity per request) route alike.  The configs with qkv bias, qk-norm or
+DeepSeek-V3's MLA + MoE run with perturbed weights: every bias drawn from
+N(0, 0.5) and every norm scale from 1 + N(0, 0.3) before conversion (the
+JAX init makes them 0 and 1, where a dropped branch would not show).  At I >= 4 the reference's own MoE DCP
 step diverges from its forward (ROADMAP queue 3), so the port is held
 against JAX's step only at I = 2.
 """
@@ -45,6 +48,23 @@ PROMPTS = {0: 50, 1: 130, 2: 40, 3: 260, 4: 64}
 STEPS = 3
 MOE = "phi3.5-moe-42b-a6.6b"
 STEP_LOGIT_RTOL = 1e-4
+# configs whose weights are perturbed before conversion (module note)
+PERTURBED = ("qwen1.5-0.5b", "llama4-scout-17b-a16e", "deepseek-v3")
+
+
+def perturb(np_tree, seed: int = 0):
+    """numpy leaves with every q/k/v bias from N(0, 0.5) and every norm
+    scale (layer norms, q/k norms, MLA's latent norms) from 1 + N(0, 0.3)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        name = getattr(path[-1], "key", None)
+        if name in ("bq", "bk", "bv"):
+            return rng.normal(0.0, 0.5, x.shape).astype(np.float32)
+        if name in ("scale", "q_norm", "k_norm", "kv_norm"):
+            return (1.0 + rng.normal(0.0, 0.3, x.shape)).astype(np.float32)
+        return x
+    return jax.tree_util.tree_map_with_path(leaf, np_tree)
 
 
 def _models(kv=None, arch="tinyllama-1.1b"):
@@ -55,6 +75,9 @@ def _models(kv=None, arch="tinyllama-1.1b"):
     cfg = reduced(CONFIGS[arch], vocab_size=256, **over)
     jparams = jax.tree.map(lambda x: x.astype(jnp.float32),
                            jinit(jax.random.PRNGKey(0), jcfg))
+    if arch in PERTURBED:
+        jparams = jax.tree.map(jnp.asarray,
+                               perturb(jax.tree.map(np.asarray, jparams)))
     params = P.from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, jparams, cfg, params
 
@@ -96,10 +119,14 @@ def _apply_moves(reshard, state, records):
      (4, 2, None, "tinyllama-1.1b", "dense"),
      (2, 4, None, "minicpm3-4b", "dense"),
      (4, 2, None, MOE, "routed"),
-     (2, 4, None, MOE, "routed")],
+     (2, 4, None, MOE, "routed"),
+     (4, 2, None, "qwen1.5-0.5b", "routed"),
+     (4, 2, None, "llama4-scout-17b-a16e", "routed"),
+     (2, 4, None, "deepseek-v3", "routed")],
     ids=["4x2", "2x4-striped", "2x2-kv4-grouped", "minicpm3-4x2",
          "minicpm3-2x4", "4x2-dense", "minicpm3-2x4-dense", "phi3.5-moe-4x2",
-         "phi3.5-moe-2x4"])
+         "phi3.5-moe-2x4", "qwen1.5-4x2", "llama4-scout-4x2",
+         "deepseek-v3-2x4"])
 def test_dcp_decode_equals_reference(I, TP, kv, arch, backend):
     jcfg, jparams, cfg, params = _models(kv, arch)
     _, khs, ps = dcp.attn_tp_geometry(cfg, TP)

@@ -273,10 +273,9 @@ QUANT_CELLS = [("fp8", 2, 2, False), ("fp8", 4, 1, False),
                ("int8", 2, 2, False), ("fp8", 2, 2, True)]
 
 
-@pytest.fixture(scope="module")
-def quant_models():
-    jcfg = jreduced(JCONFIGS["tinyllama-1.1b"], vocab_size=VOCAB)
-    cfg = reduced(CONFIGS["tinyllama-1.1b"], vocab_size=VOCAB)
+def _quant_models(arch="tinyllama-1.1b", **over):
+    jcfg = jreduced(JCONFIGS[arch], vocab_size=VOCAB, **over)
+    cfg = reduced(CONFIGS[arch], vocab_size=VOCAB, **over)
     jparams = jax.tree.map(
         lambda x: x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x,
         jinit(jax.random.PRNGKey(0), jcfg))
@@ -284,11 +283,28 @@ def quant_models():
     return jcfg, jparams, cfg, params
 
 
+@pytest.fixture(scope="module")
+def quant_models():
+    return _quant_models()
+
+
 @pytest.mark.parametrize("kv_dtype,I,TP,escalate", QUANT_CELLS,
                          ids=["fp8-2-2", "fp8-4-1", "int8-2-2",
                               "fp8-2-2-escalate"])
 def test_engine_quant_cell(quant_models, kv_dtype, I, TP, escalate):
-    jcfg, jparams, cfg, params = quant_models
+    _engine_quant_cell(quant_models, kv_dtype, I, TP, escalate)
+
+
+def test_engine_quant_cell_deepseek_fp8():
+    """The same cell on reduced DeepSeek-V3 (MLA's fp8 latent pool, MoE top-2
+    of 4 plus a shared expert, capacity factor 8): quantized MLA + MoE held
+    to the reference's contract, at the reference's own reduced setting."""
+    _engine_quant_cell(_quant_models("deepseek-v3", capacity_factor=8.0),
+                       "fp8", 2, 2, False)
+
+
+def _engine_quant_cell(models, kv_dtype, I, TP, escalate):
+    jcfg, jparams, cfg, params = models
     tol = LOGIT_TOL[kv_dtype]
     if escalate:
         edges, degrees = (48,), (1, 2)
@@ -303,8 +319,11 @@ def test_engine_quant_cell(quant_models, kv_dtype, I, TP, escalate):
                                    window=I),
         max_slots_per_instance=4, audit_donation_every_step=True,
         kv_dtype=kv_dtype, keep_logits=True, device="cpu")
-    assert {"k_scale", "v_scale"} <= set(eng.state)
-    assert eng.state["k_pool"].dtype == quant.kv_storage_dtype(kv_dtype,
+    pools, scales = ((("kv_pool",), {"kv_scale"}) if cfg.is_mla
+                     else (("k_pool", "v_pool"), {"k_scale", "v_scale"}))
+    assert scales <= set(eng.state)
+    for name in pools:
+        assert eng.state[name].dtype == quant.kv_storage_dtype(kv_dtype,
                                                                torch.float32)
     ptrs = {k: t.data_ptr() for k, t in eng.state.items()}
     rng = np.random.default_rng(0)
@@ -330,6 +349,7 @@ def test_engine_quant_cell(quant_models, kv_dtype, I, TP, escalate):
     # request over prompt + transcript gives the reference logits at every
     # generated position
     near_ties = total = 0
+    worst = 0.0
     for rid, res in eng.results.items():
         seq = prompts[rid] + res.tokens[:-1]
         ref_logits, _ = jtransformer.forward(jcfg, jparams,
@@ -342,6 +362,7 @@ def test_engine_quant_cell(quant_models, kv_dtype, I, TP, escalate):
         for j, got in enumerate(steps):
             r = ref[j + 1]
             delta = float(np.max(np.abs(got[:VOCAB] - r)))
+            worst = max(worst, delta)
             assert delta <= tol, (rid, j, delta, tol)
             order = np.argsort(r)
             total += 1
@@ -350,6 +371,8 @@ def test_engine_quant_cell(quant_models, kv_dtype, I, TP, escalate):
                 assert margin <= tol, (rid, j, margin, tol)
                 near_ties += 1
     assert near_ties <= total // 2, (near_ties, total)
+    print(f"{cfg.name} {kv_dtype}: worst |dlogit| {worst:.4f}, near-ties "
+          f"{near_ties}/{total}")
 
     st = eng.aot.stats
     assert st.donation_checks == hp["steps"] > 0 and st.donation_copies == 0

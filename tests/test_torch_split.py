@@ -113,3 +113,73 @@ def test_plan_split_on_the_main_path():
     twelve ways on an H100's 132 SMs, 4 pages each: 1,344 blocks, about 10
     per SM."""
     assert pa.plan_split(56, 2, 45, 132) == 4
+
+
+# --------------------------------------------------------------------------- #
+# head groups: DeepSeek-V3's latent (G 128, Dk 576, v = k[..., :512])
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("pps", [1, 2, "MB"])
+@pytest.mark.parametrize("G,gh", [(128, None), (33, None), (8, 3)])
+def test_head_group_mirror_matches_unsplit(G, gh, pps):
+    """``split_plain`` with the kernel's head groups (``plan_heads``'s for
+    the 576-wide latent, or 3 heads per group) over its split-KV partition
+    equals the unsplit plain version and JAX's, with v a view of k and
+    MLA's scale."""
+    N, Dk, Dv, page, MB, P = 3, 576, 512, 4, 3, 16
+    rng = np.random.default_rng(G)
+    q = rng.standard_normal((N, G, Dk)).astype(np.float32)
+    k = rng.standard_normal((P, page, 1, Dk)).astype(np.float32)
+    bt = rng.integers(0, P, (N, MB)).astype(np.int32)
+    ln = np.array([0, MB * page, page + 1], np.int32)
+    gh = gh or pa.plan_heads(G, Dk, Dv, 4, True, MB)
+    assert gh < G or G == 8
+    pps = MB if pps == "MB" else pps
+    tq, tk, tbt, tln = map(torch.from_numpy, (q, k, bt, ln))
+    scale = (128 + 64) ** -0.5
+    o_s, l_s = pa.split_plain(tq, tk, tk[..., :Dv], tbt, tln, pps,
+                              heads_per_group=gh, scale=scale)
+    o_r, l_r = ref.paged_decode_attention(tq, tk, tk[..., :Dv], tbt, tln,
+                                          scale=scale)
+    o_j, l_j = jref.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(k[..., :Dv]),
+        jnp.asarray(bt), jnp.asarray(ln), scale=scale)
+    assert o_s.shape == (N, G, Dv)
+    for want_o, want_l in ((o_r.numpy(), l_r.numpy()),
+                           (np.asarray(o_j), np.asarray(l_j))):
+        np.testing.assert_allclose(o_s.numpy(), want_o, atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(l_s.numpy(), want_l, atol=TOL, rtol=TOL)
+    assert (o_s[0] == 0).all() and (l_s[0] == ref.NEG_INF).all()
+
+
+@pytest.mark.parametrize("G,Dk,Dv,page_bytes,shared,MB,want", [
+    (128, 576, 512, 4, True, 30, 32),   # DeepSeek-V3, f32: 4 groups
+    (128, 576, 512, 2, True, 30, 32),   # bf16: the accumulators bind
+    (128, 576, 512, 1, True, 30, 32),   # fp8 / int8 codes
+    (33, 576, 512, 4, True, 8, 17),     # one head past a group: 17 + 16
+    (64, 576, 512, 4, True, 8, 32),
+    (32, 576, 512, 4, True, 8, 32),
+    (40, 288, 256, 4, True, 24, 40),    # MiniCPM3-4B: one group, as before
+    (8, 64, 64, 4, False, 44, 8),       # TinyLlama
+    (4, 128, 128, 4, False, 44, 4),     # Phi-3.5-MoE
+    (5, 128, 128, 4, False, 44, 5),     # Llama-4-Scout
+    (1, 64, 64, 4, False, 44, 1),       # Qwen1.5 (MHA)
+])
+def test_plan_heads(G, Dk, Dv, page_bytes, shared, MB, want):
+    """The fewest balanced head groups whose accumulators fit MAX_PAIRS and
+    whose block (q, scores, a two-stage ring) fits the 227 KB opt-in."""
+    gh = pa.plan_heads(G, Dk, Dv, page_bytes, shared, MB)
+    assert gh == want
+    assert gh * -(-Dv // 4) <= pa.MAX_PAIRS
+    assert pa.smem_bytes(gh, Dk, Dv, page_bytes, shared, MB) <= pa.SMEM_OPTIN
+    groups = -(-G // gh)
+    if groups > 1:                       # one group fewer does not fit
+        wider = -(-G // (groups - 1))
+        assert (wider * -(-Dv // 4) > pa.MAX_PAIRS or pa.smem_bytes(
+            wider, Dk, Dv, page_bytes, shared, MB) > pa.SMEM_OPTIN)
+
+
+def test_plan_heads_refuses_a_separate_wide_v():
+    """A float32 576-wide K beside its own 512-wide V needs 280 KB of ring
+    alone: no head grouping fits, and the wrapper's planner says so."""
+    with pytest.raises(ValueError, match="do not fit"):
+        pa.plan_heads(128, 576, 512, 4, False, 8)
