@@ -21,14 +21,26 @@ Phases, each printing one JSON line:
                kv_len inside one tile and Dk != Dv.
   3. engine  — full-width TinyLlama-1.1B (random float32 weights, seed 0)
                through NanoCPEngine on a virtual (I=4, TP=2) mesh, pipelined
-               and not; every transcript is checked teacher-forced against
-               the port's greedy forward on the card.  Launch counters are
-               zeroed right before each run and read right after.
-  4. profile — a third pipelined run: torch.profiler over 5 steady steps
-               (device time by kernel, busy share, launches), and the paged
-               kernel re-checked and re-timed on the largest call the main
-               path made; then one prefill forward of the 2000-token prompt
-               profiled (device time, the flash kernel's share).
+               and not.  Every engine run replays one CUDA graph per bucket
+               (``core/aot.py``) unless it is the eager recorder run, the
+               only one whose step the Python recorders can see (largest
+               paged call, expert loads and routes).  Each model's (4, 2)
+               runs go both ways ("parity" rows): the pipelined graph run
+               gives the recorder run's tokens and bit-equal step logits,
+               the non-pipelined one its tokens; the recorder run's
+               transcripts are checked teacher-forced against the port's
+               greedy forward on the card.  Launch counters are zeroed
+               right before each run and read right after (a replay counts
+               the launches its graph recorded).
+  4. profile — a pipelined run each way: torch.profiler over 5 steady
+               steps (device time by kernel, busy share, kernels and host
+               launch calls per step), the unprofiled steady steps after
+               them timed, and the paged kernel re-checked and re-timed on
+               the largest call the main path made; then one prefill
+               forward of the 2000-token prompt profiled (device time, the
+               flash kernel's share).  A "graphs" row per model sets the
+               numbers of both ways side by side with the card's name and
+               power limit.
   5. quant   — the same engine and traffic with fp8, then int8 KV pools
                (codes plus per-page scales), pipelined, held to the
                reference's tolerance contract against the greedy forward
@@ -42,9 +54,9 @@ Phases, each printing one JSON line:
                CP bucket edge at 48 on a (2, 2) mesh: the live re-shard moves
                quantized KV with its scales; the same contract holds.
   7. dense   — the main path's traffic with the dense all-gather backend
-               (``backend="dense"``) beside a routed twin run, both keeping
-               their step logits: the tokens must be equal, the logits
-               within 1e-4.
+               (``backend="dense"``, both ways) beside its routed twin, the
+               pipelined graph run of phase 3, both keeping their step
+               logits: the tokens must be equal, the logits within 1e-4.
   8. spill   — TinyLlama on a (2, 2) mesh with a pool of a few pages per
                instance: the scheduler's own escalation off, so decode
                growth spills at table lowering and the engine's spill
@@ -53,8 +65,15 @@ Phases, each printing one JSON line:
                request-level OOM finish (``GenResult.oom``, tokens a prefix
                of greedy).  Then the main path's traffic at (4, 2) with one
                ``drain_instance`` and one ``compact`` mid-run (transcripts
-               equal greedy, both counted).  The TinyLlama weights are then
-               freed.
+               equal greedy, both counted).
+  8b. chaos  — TinyLlama at (4, 2) with graphs: a kill between dispatch and
+               harvest (recovered transcripts greedy), a kill then a join
+               with prewarm (pools bit-equal across the prewarm;
+               ``online_compiles`` flat after the join; a second cell where
+               escalation recruits the joiner and a prewarmed graph
+               replays), and a forced drain (fail semantics, a degraded
+               greedy prefix).  No frame leaks.  The TinyLlama weights are
+               then freed.
   9. mla     — full-width MiniCPM3-4B (62 layers, random float32 weights,
                seed 0) through the engine: the main path's traffic at
                (I=4, TP=2) pipelined and not, at (2, 4) pipelined; fp8 and
@@ -94,11 +113,13 @@ Phases, each printing one JSON line:
                fails the run; all MoE phases).
  13. deepseek — DeepSeek-V3 at full width, 1 of its 60 layers (MLA with a
                576-wide latent at G 128, 256 experts top-8 plus a shared
-               one, capacity factor 32): (4, 2) and (2, 4) pipelined, then
-               fp8 and int8 latent pools under the tolerance contract, where
-               a decode step whose router chose other experts than the
-               forward's is counted, not held (``quant_contract``).
- 14. summary — ``{"kernels": [...]}``, then the last line
+               one, capacity factor 32): (4, 2) pipelined and not and
+               (2, 4) pipelined, then fp8 and int8 latent pools under the
+               tolerance contract, where a decode step whose router chose
+               other experts than the forward's is counted, not held
+               (``quant_contract``).
+ 14. summary — the script's seconds, ``{"kernels": [...]}``, then the last
+               line
                ``{"ok": true, "device": {...}}``.
 
 The kernel phase also holds the paged kernel at MLA's latent shape (G 40
@@ -119,6 +140,7 @@ without the repository's ``src/`` beside it, the script fails.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
@@ -896,54 +918,74 @@ def make_engine(cfg, params, prompts, pipeline: bool, *,
     return eng
 
 
+def free_memory() -> None:
+    """Collect dropped engines and return their device memory: call after
+    ``eng.close()`` (which frees the graphs and their pool) and ``del``."""
+    gc.collect()        # the engine and its step cache form a cycle
+    torch.cuda.empty_cache()
+
+
 def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
                tag: str | None = None, new_tokens: int = NEW_TOKENS,
                escalate: bool = False, keep_logits: bool = False,
                mid_run=None, expect_stats: dict | None = None,
-               oom: bool = False, **kw) -> dict:
+               oom: bool = False, cuda_graphs: bool = True,
+               check: bool = True, **kw) -> dict:
     """One engine run, its launch counts zeroed right before and read right
-    after.  Float32 pools: transcripts equal the greedy forward.  Quantized
-    pools: the tolerance contract, every paged launch of the quantized
-    variant, the kv dtype in the bucket key, a clean frame audit and the
-    live re-shard exercised (relaxations); with ``escalate`` (any pools) an
-    escalation re-shard must have run.  The largest paged call of a
-    quantized run's first steps is kept in ``row["captured"]``; with
-    ``keep_logits`` the step logits by request in ``row["step_logits"]``
-    and the transcripts in ``row["tokens"]``.  ``mid_run(eng)`` runs once
-    after the third step (a drain, a compaction); ``expect_stats`` gives
-    minimums of ``hot_path_stats``; with ``oom`` every request must end in
-    a request-level OOM with a greedy prefix.  MoE runs record the rows per
-    MoE binding (B_s) of every dispatched step and its capacity C, and for
-    every prefill and decode step each MoE call's fullest bin against its
-    C (``expert_load``); a dropped token fails the run."""
+    after.  The step replays one CUDA graph per bucket unless
+    ``cuda_graphs`` is False: the eager run is the recorder run, the only
+    one whose step the Python recorders can see (the largest paged call,
+    every MoE call's bins and routes).  With ``check`` (else the caller
+    holds the run to an eager twin): float32 pools' transcripts equal the
+    greedy forward; quantized pools keep the tolerance contract.  Every
+    run: the paged kernel launched once per attention layer per step (a
+    replay counts the launches its graph recorded), every launch of the
+    pools' page type, no pool moved.  Quantized pools also: the kv dtype
+    in the bucket key, a clean frame audit and the live re-shard exercised
+    (relaxations); with ``escalate`` (any pools) an escalation re-shard
+    must have run.  The largest paged call of a quantized recorder run's
+    first steps is kept in ``row["captured"]``; with ``keep_logits`` the
+    step logits by request in ``row["step_logits"]`` and the transcripts in
+    ``row["tokens"]`` (always kept).  ``mid_run(eng)`` runs once after the
+    third step (a drain, a compaction); ``expect_stats`` gives minimums of
+    ``hot_path_stats``; with ``oom`` every request must end in a
+    request-level OOM with a greedy prefix.  MoE runs record the rows per
+    MoE binding (B_s) of every dispatched step and its capacity C, and a
+    recorder run, for every prefill and decode step, each MoE call's
+    fullest bin against its C (``expert_load``); a dropped token fails the
+    run."""
     quantized = quant.is_quantized(kv_dtype)
+    recorder = not cuda_graphs
     tag = tag or ("pipelined" if pipeline else "non-pipelined")
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     if quantized:
         kw.update(kv_dtype=kv_dtype, audit_donation_every_step=True)
     if quantized or keep_logits:
         kw["keep_logits"] = True
+    if quantized and check and cfg.is_moe and not (recorder and pipeline):
+        fail(f"{tag}: a quantized MoE run's contract reads its decode routes "
+             "from the pipelined recorder run")
     eng = make_engine(cfg, params, prompts, pipeline, new_tokens=new_tokens,
-                      **kw)
+                      cuda_graphs=cuda_graphs, **kw)
     torch.cuda.synchronize()
     pa.LAUNCHES = 0
     pa.LAUNCHES_BY_PAGE.clear()
     fa.LAUNCHES = 0
-    cap = LargestPagedCall() if quantized else None
+    cap = LargestPagedCall() if quantized and recorder else None
     step_ms, prefill_us, steady, host_us, rounds = [], 0.0, [], {}, 0
     moe_steps = []
-    loads = ExpertLoads()
+    loads = ExpertLoads() if recorder else None
     dispatched = {}     # step -> (rid, instance, slot) of its decode rows
-    if quantized and cfg.is_moe and not pipeline:
-        fail(f"{tag}: a quantized MoE run reads its decode routes from the "
-             "pipelined engine's in-flight iteration")
     t_run = time.perf_counter()
-    with torch.no_grad(), loads:
+    with torch.no_grad(), (loads or contextlib.nullcontext()):
         while eng.pending and len(step_ms) < 200:
             inspect = cap is not None and len(step_ms) < CAPTURE_STEPS
             if mid_run is not None and len(step_ms) == 3:
                 mid_run(eng)
-            loads.step = len(step_ms)
+            if loads is not None:
+                loads.step = len(step_ms)
             t0 = time.perf_counter()
             if inspect:
                 with cap:
@@ -952,8 +994,8 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
                 eng.step()
             dt = (time.perf_counter() - t0) * 1e3
             if quantized and cfg.is_moe and eng._inflight is not None:
-                dispatched[loads.step] = [(rid, i, b) for rid, _, i, b, _
-                                          in eng._inflight.slots]
+                dispatched[len(step_ms)] = [(rid, i, b) for rid, _, i, b, _
+                                            in eng._inflight.slots]
             step_ms.append(dt)
             rounds = max(rounds, eng.last_rounds_used)
             if cfg.is_moe and "dispatch_us" in eng.timings:
@@ -978,16 +1020,20 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
     if launches != want:
         fail(f"{tag}: launches {launches}, expected {want} "
              f"(steps x layers, prompts x layers)")
-    pool = eng.state["kv_pool" if cfg.is_mla else "k_pool"]
-    page_name = str(pool.dtype).replace("torch.", "")
+    page_name = str(eng.state["kv_pool" if cfg.is_mla else "k_pool"].dtype
+                    ).replace("torch.", "")
     if by_page != {page_name: want["paged_decode"]}:
         fail(f"{tag}: paged launches by page type {by_page}, expected all "
              f"{want['paged_decode']} of {page_name}")
-    if eng.aot.stats.donation_copies:
-        fail(f"{tag}: pools moved during a step: {eng.aot.stats.as_dict()}")
+    st = eng.aot.stats
+    if st.donation_copies:
+        fail(f"{tag}: pools moved during a step: {st.as_dict()}")
+    if cuda_graphs and (st.captured < 1 or st.hits < 1):
+        fail(f"{tag}: no step replayed a captured graph: {st.as_dict()}")
     hp = eng.hot_path_stats
     row = {"phase": "engine", "model": cfg.name, "run": tag,
-           "kv_dtype": kv_dtype, "backend": eng._dims0.backend,
+           "cuda_graphs": cuda_graphs, "kv_dtype": kv_dtype,
+           "backend": eng._dims0.backend,
            "mesh": [eng.cluster.num_instances, eng.tp],
            "requests": len(prompts),
            "prompt_lens": [len(p) for p in prompts], "new_tokens": new_tokens,
@@ -1008,16 +1054,18 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
         if short:
             fail(f"{tag}: requests {short} did not end in an OOM finish")
     if quantized:
-        row.update(quant_contract(
-            cfg, params, prompts, eng, kv_dtype, tag, new_tokens,
-            loads.decode_routes(dispatched) if cfg.is_moe else None))
+        if check:
+            row.update(quant_contract(
+                cfg, params, prompts, eng, kv_dtype, tag, new_tokens,
+                loads.decode_routes(dispatched) if cfg.is_moe else None))
         if eng.last_bucket[-1] != kv_dtype:
             fail(f"{tag}: bucket key {eng.last_bucket} lacks the kv dtype")
         eng.cluster.page_table.frame_audit()
         if not escalate and hp["relaxations"] <= 0:
             fail(f"{tag}: the quantized re-shard never ran: {hp}")
-        row["captured_kv_tokens"] = cap.tokens
-    else:
+        if cap is not None:
+            row["captured_kv_tokens"] = cap.tokens
+    elif check:
         row["ties_tolerated"] = teacher_forced_check(
             cfg, params, prompts, eng.results, tag,
             None if oom else new_tokens)
@@ -1027,7 +1075,7 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
     if moe_steps:
         row["moe_steps"] = moe_steps
         row["launches_per_step"] = {k: v / steps for k, v in launches.items()}
-    if cfg.is_moe:
+    if loads is not None and cfg.is_moe:
         # [fullest bin, C] of every MoE call, by step and kind
         row["expert_load"] = loads.by_step()
         dropped = [(e["step"], k, p) for e in row["expert_load"]
@@ -1050,20 +1098,59 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
         "prefill_ms_per_request": prefill_us / 1e3 / len(prompts),
         "decode_tokens_per_s": decode_tokens / decode_s,
         "run_s": run_s, "hot_path_stats": hp,
-        "aot": eng.aot.stats.as_dict(),
+        "aot": st.as_dict(),
         "last_bucket": list(eng.last_bucket),
         "pool_bytes": nbytes(*eng.state.values()),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
-    emit(row)
+    row["tokens"] = {r: g.tokens for r, g in eng.results.items()}
+    emit({k: v for k, v in row.items() if k != "tokens"})
     if cap is not None:
         row["captured"] = (cap.args, cap.scale)
-    if keep_logits:
+    if keep_logits or quantized:
         row["step_logits"] = dict(eng.step_logits)
-        row["tokens"] = {r: g.tokens for r, g in eng.results.items()}
+    eng.close()
     del eng
-    gc.collect()        # the engine and its step cache form a cycle
-    torch.cuda.empty_cache()
+    free_memory()
+    # the engine's pools, tables and graphs are gone (a recorder run keeps
+    # the largest paged call's inputs)
+    left = torch.cuda.memory_allocated() - mem0
+    if cap is None and left > 64 * 2**20:
+        fail(f"{tag}: {left / 2**20:.1f} MiB still allocated after the "
+             "engine was dropped")
     return row
+
+
+def run_pair(cfg, params, prompts, pipeline: bool, *, tag: str,
+             keep_logits: bool = True, **kw) -> tuple:
+    """The same run twice: eagerly (the recorder run, held to greedy or the
+    tolerance contract) and with graphs, which must give equal tokens and,
+    with ``keep_logits``, bit-equal step logits.  Returns (eager row,
+    graph row)."""
+    eager = run_engine(cfg, params, prompts, pipeline, tag=f"{tag} eager",
+                       keep_logits=keep_logits, cuda_graphs=False, **kw)
+    graph = run_engine(cfg, params, prompts, pipeline, tag=tag,
+                       keep_logits=keep_logits, check=False, **kw)
+    if graph["tokens"] != eager["tokens"]:
+        fail(f"{tag}: graph tokens {graph['tokens']} != eager "
+             f"{eager['tokens']}")
+    worst = 0.0
+    if "step_logits" in graph:
+        for rid, steps in eager["step_logits"].items():
+            got = graph["step_logits"][rid]
+            if len(got) != len(steps):
+                fail(f"{tag}: request {rid} kept {len(got)} graph step "
+                     f"logits, {len(steps)} eager")
+            for a, b in zip(got, steps):
+                if not np.array_equal(a, b):
+                    worst = max(worst, float(np.abs(a - b).max()))
+        if worst:
+            fail(f"{tag}: graph step logits differ from eager by {worst} "
+                 "(not bit-equal)")
+    emit({"phase": "parity", "model": cfg.name, "run": tag,
+          "tokens_equal": True,
+          "logits_bit_equal": True if "step_logits" in graph else None,
+          "graph_replays": graph["aot"]["hits"]})
+    return eager, graph
 
 
 # the MoE pieces whose device time the profiles report, by range name
@@ -1131,60 +1218,131 @@ def kernel_events(prof) -> list:
             and e.self_device_time_total > 0 and e.key not in MOE_RANGES]
 
 
-def profile_engine(cfg, params, prompts) -> tuple:
-    """A third, pipelined run of the same traffic.  During its first steps
-    it keeps a frozen copy of the inputs of the largest paged-decode call
-    the main path makes (most kv tokens); then ``torch.profiler`` traces
-    PROFILE_STEPS steady steps: device time by kernel, and the device's busy
-    share of the traced window (the profiler's own host overhead lengthens
-    the window, so the share is a lower bound).  An MoE model's trace also
-    gives the device time of its MoE pieces (``MOE_RANGES``).  Returns the
-    captured call's (inputs, scale)."""
-    eng = make_engine(cfg, params, prompts, pipeline=True)
-    with torch.no_grad(), LargestPagedCall() as cap:
+# CUDA API calls (``cuda*`` and ``cu*`` entry points) that put work on a
+# stream, as the profiler names them on the host side
+HOST_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                    "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                    "cudaMemsetAsync")
+
+
+def profile_engine(cfg, params, prompts, cuda_graphs: bool) -> tuple:
+    """A pipelined run of the same traffic, with graphs or eager.  The
+    eager run keeps, during its first steps, a frozen copy of the inputs of
+    the largest paged-decode call the main path makes (most kv tokens).
+    Then ``torch.profiler`` traces PROFILE_STEPS steady steps: device time
+    by kernel (CUPTI traces the kernels a graph replays), kernels and host
+    launch calls per step, and the device's busy share of the traced
+    window (the profiler's own host overhead lengthens the window, so the
+    share is a lower bound).  An eager MoE model's trace also gives the
+    device time of its MoE pieces (``MOE_RANGES``: Python ranges, which a
+    replay does not run).  The steps after the window, unprofiled, give the
+    median steady step time.  Returns (the captured call's (inputs, scale)
+    or None, the row)."""
+    eng = make_engine(cfg, params, prompts, pipeline=True,
+                      cuda_graphs=cuda_graphs)
+    cap = None if cuda_graphs else LargestPagedCall()
+    with torch.no_grad(), (cap or contextlib.nullcontext()):
         for _ in range(CAPTURE_STEPS):      # admission + first decode steps
             eng.step()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with (torch.no_grad(), MoERanges(),
+    ranges = contextlib.nullcontext() if cuda_graphs else MoERanges()
+    with (torch.no_grad(), ranges,
           torch.profiler.profile(activities=acts) as prof):
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
             eng.step()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
+    steady = []
     with torch.no_grad():
-        eng.run()
+        while eng.pending:
+            captured = eng.aot.stats.captured
+            t0 = time.perf_counter()
+            eng.step()
+            dt = (time.perf_counter() - t0) * 1e3
+            if ("dispatch_us" in eng.timings and "prefill_us" not in
+                    eng.timings and eng.aot.stats.captured == captured):
+                steady.append(dt)
+    torch.cuda.synchronize()
 
     def dev_us(e):
         return float(e.self_device_time_total)
 
     events = kernel_events(prof)
     device_us = sum(dev_us(e) for e in events)
+    host_calls = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.key in HOST_LAUNCH_APIS}
     top = sorted(events, key=dev_us, reverse=True)[:12]
     row = {"phase": "profile", "model": cfg.name, "run": "pipelined",
-           "steps": PROFILE_STEPS,
+           "cuda_graphs": cuda_graphs, "steps": PROFILE_STEPS,
            "window_us": window_us, "device_us": device_us,
+           "device_ms_per_step": device_us / 1e3 / PROFILE_STEPS,
            "device_busy_share": device_us / window_us,
            "kernel_launches": sum(e.count for e in events),
            "kernel_launches_per_step": sum(e.count for e in events)
                                        / PROFILE_STEPS,
+           "host_launches_per_step": sum(host_calls.values()) / PROFILE_STEPS,
+           "host_launch_calls": host_calls,
+           "median_steady_step_ms": (statistics.median(steady) if steady
+                                     else None),
+           "unprofiled_steady_steps": len(steady),
+           "aot": eng.aot.stats.as_dict(),
            "top_kernels": [{"name": e.key[:80], "count": e.count,
                             "device_us": dev_us(e)} for e in top],
            # the paged kernel and its split merge
            "paged_share": sum(dev_us(e) for e in events
                               if "paged_split_kernel" in e.key
                               or "merge_kernel" in e.key) / device_us}
-    if cfg.is_moe:
-        row["device_ms_per_step"] = device_us / 1e3 / PROFILE_STEPS
+    if cfg.is_moe and not cuda_graphs:
         row["moe_share"] = {k: v * 1e3 / device_us
                             for k, v in range_device_ms(prof).items()}
     emit(row)
+    eng.close()
     del eng
-    gc.collect()        # the engine and its step cache form a cycle
-    torch.cuda.empty_cache()
-    return cap.args, cap.scale
+    free_memory()
+    return (None if cap is None else (cap.args, cap.scale)), row
+
+
+def both_ways(cfg, params, prompts, label: str) -> dict:
+    """The model's main-path traffic at (4, 2) with graphs on and off: the
+    pipelined pair (step logits kept, bit-equal), the non-pipelined pair
+    (tokens equal) and a profile each way, then one row of the numbers
+    side by side, marked with the card.  Returns the runs' rows by name
+    and the eager profile's captured paged call."""
+    pe, pg = run_pair(cfg, params, prompts, True, tag=f"{label} pipelined")
+    ne, ng = run_pair(cfg, params, prompts, False,
+                      tag=f"{label} non-pipelined", keep_logits=False)
+    captured, prof_e = profile_engine(cfg, params, prompts, cuda_graphs=False)
+    _, prof_g = profile_engine(cfg, params, prompts, cuda_graphs=True)
+    side = {}
+    for way, pipe, nopipe, prof in (("graphs", pg, ng, prof_g),
+                                    ("eager", pe, ne, prof_e)):
+        side[way] = {
+            "step_ms_pipelined": prof["median_steady_step_ms"],
+            "step_ms_non_pipelined": nopipe["median_steady_step_ms"],
+            # the pipelined pair keeps its step logits (one [I, M, V] copy
+            # to the host per step)
+            "decode_tokens_per_s_pipelined": pipe["decode_tokens_per_s"],
+            "steady_host_us_pipelined": pipe["steady_host_us"],
+            "decode_tokens_per_s_non_pipelined":
+                nopipe["decode_tokens_per_s"],
+            "steady_host_us_non_pipelined": nopipe["steady_host_us"],
+            "device_ms_per_step": prof["device_ms_per_step"],
+            "device_busy_share": prof["device_busy_share"],
+            "host_launches_per_step": prof["host_launches_per_step"],
+            "kernel_launches_per_step": prof["kernel_launches_per_step"],
+            "graphs": prof["aot"]["captured"] if way == "graphs" else 0,
+            "capture_s": (prof["aot"]["capture_seconds"]
+                          if way == "graphs" else 0.0),
+            "graph_pool_bytes": prof["aot"]["graph_pool_bytes"],
+            "peak_mem_gb": max(pipe["peak_mem_gb"], nopipe["peak_mem_gb"])}
+    emit({"phase": "graphs", "model": cfg.name, "card": nvidia_smi(),
+          **side})
+    return {"pipelined": pg, "pipelined eager": pe, "non-pipelined": ng,
+            "non-pipelined eager": ne, "captured": captured}
 
 
 def profile_prefill(cfg, params, prompt) -> dict:
@@ -1221,6 +1379,7 @@ def profile_prefill(cfg, params, prompt) -> dict:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
@@ -1242,8 +1401,8 @@ def main() -> None:
                                      dtype=torch.float32)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, (L,)) for L in PROMPT_LENS]
-    runs = [run_engine(cfg, params, prompts, pipeline=p) for p in (True, False)]
-    main_args, _ = profile_engine(cfg, params, prompts)
+    runs = both_ways(cfg, params, prompts, "tinyllama")
+    main_args, _ = runs["captured"]
     profile_prefill(cfg, params, prompts[int(np.argmax(PROMPT_LENS))])
     # the paged kernel at the largest call the main path made (float32 pools)
     main_row = paged_row(main_args, torch.float32, "main path")
@@ -1253,11 +1412,11 @@ def main() -> None:
     # quantized pools: the main path's traffic, then the escalation cell
     qruns = {}
     for kv_dtype in ("fp8", "int8"):
-        qruns[kv_dtype] = run = run_engine(cfg, params, prompts, True,
-                                           kv_dtype=kv_dtype,
-                                           tag=f"{kv_dtype} pipelined")
-        # the quantized kernel at the largest call the run made, for the
-        # run's float32 queries and for bfloat16 ones
+        run, qruns[kv_dtype] = run_pair(cfg, params, prompts, True,
+                                        kv_dtype=kv_dtype,
+                                        tag=f"{kv_dtype} pipelined")
+        # the quantized kernel at the largest call the recorder run made,
+        # for the run's float32 queries and for bfloat16 ones
         args, _ = run.pop("captured")
         for a in (args, as_bf16_call(args)):
             row = paged_row(a, a[0].dtype, "main path")
@@ -1274,12 +1433,11 @@ def main() -> None:
                kv_dtype="fp8", tag="fp8 escalate", new_tokens=24,
                escalate=True, **escalation)
 
-    # the dense all-gather backend beside a routed twin: same tokens, and
-    # logits within DENSE_LOGIT_TOL
-    twin = run_engine(cfg, params, prompts, True, tag="routed twin",
-                      keep_logits=True)
-    dense = run_engine(cfg, params, prompts, True, tag="dense pipelined",
-                       keep_logits=True, backend="dense")
+    # the dense all-gather backend beside its routed twin (the main path's
+    # pipelined graph run): same tokens, and logits within DENSE_LOGIT_TOL
+    twin = runs["pipelined"]
+    _, dense = run_pair(cfg, params, prompts, True, tag="dense pipelined",
+                        backend="dense")
     if dense["max_rounds_used"] < 1:
         fail("dense pipelined: no step routed a row across instances")
     if dense["tokens"] != twin["tokens"]:
@@ -1296,6 +1454,7 @@ def main() -> None:
           "routed_median_steady_step_ms": twin["median_steady_step_ms"]})
     del twin, dense
     run_spill_phase(cfg, params, prompts)
+    run_chaos_phase(cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1312,17 +1471,15 @@ def main() -> None:
           "init_s": time.perf_counter() - t0})
     rng = np.random.default_rng(0)
     mprompts = [rng.integers(0, mcfg.vocab_size, (L,)) for L in PROMPT_LENS]
-    mruns = [run_engine(mcfg, mparams, mprompts, pipeline=p,
-                        tag=f"mla {'pipelined' if p else 'non-pipelined'}")
-             for p in (True, False)]
+    mruns = both_ways(mcfg, mparams, mprompts, "mla")
     run_engine(mcfg, mparams, mprompts, True, tag="mla 2x4 pipelined",
                num_instances=2, instances_per_node=2, tp=4,
                buckets=CPBuckets(edges=(256,), degrees=(1, 2)))
     mq = {}
     for kv_dtype in ("fp8", "int8"):
-        mq[kv_dtype] = run = run_engine(mcfg, mparams, mprompts, True,
-                                        kv_dtype=kv_dtype,
-                                        tag=f"mla {kv_dtype} pipelined")
+        run, mq[kv_dtype] = run_pair(mcfg, mparams, mprompts, True,
+                                     kv_dtype=kv_dtype,
+                                     tag=f"mla {kv_dtype} pipelined")
         (args, sc) = run.pop("captured")
         for a in (args, as_bf16_call(args)):
             row = paged_row(a, a[0].dtype, "mla main path", scale=sc)
@@ -1334,7 +1491,7 @@ def main() -> None:
         run_engine(mcfg, mparams, eprompt, True, kv_dtype=kv_dtype,
                    tag=f"mla {'f32' if kv_dtype == 'bf16' else kv_dtype} "
                        "escalate", new_tokens=24, escalate=True, **escalation)
-    margs, msc = profile_engine(mcfg, mparams, mprompts)
+    margs, msc = mruns["captured"]
     profile_prefill(mcfg, mparams, mprompts[int(np.argmax(PROMPT_LENS))])
     for a in (margs, as_bf16_call(margs)):
         row = paged_row(a, a[0].dtype, "mla main path", scale=msc)
@@ -1347,20 +1504,18 @@ def main() -> None:
     moe_runs = run_moe_phase(ksum)
     mesh_2x4 = dict(num_instances=2, instances_per_node=2, tp=4,
                     buckets=CPBuckets(edges=(256,), degrees=(1, 2)))
-    three = (("pipelined", True, {}), ("non-pipelined", False, {}),
-             ("2x4 pipelined", True, mesh_2x4))
+    mesh_runs = (("2x4 pipelined", True, mesh_2x4),)
     qwen = run_archetype_phase("qwen", get_config("qwen1.5-0.5b"), ksum,
-                               three, name="paged_decode_qwen")
+                               mesh_runs, name="paged_decode_qwen")
     llama4 = run_archetype_phase(
         "llama4", replace(get_config("llama4-scout-17b-a16e"),
                           num_layers=LLAMA4_LAYERS,
                           capacity_factor=LLAMA4_CAPACITY_FACTOR),
-        ksum, three, name="paged_decode_llama4")
+        ksum, mesh_runs, name="paged_decode_llama4")
     ds = run_archetype_phase(
         "deepseek", replace(get_config("deepseek-v3"), num_layers=DS_LAYERS,
                             capacity_factor=DS_CAPACITY_FACTOR),
-        ksum, (("pipelined", True, {}), ("2x4 pipelined", True, mesh_2x4)),
-        name="paged_decode_ds", quant=("fp8", "int8"))
+        ksum, mesh_runs, name="paged_decode_ds", quant=("fp8", "int8"))
 
     src, replaces = ("src/repro_torch/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_attention.py:36")
@@ -1369,24 +1524,24 @@ def main() -> None:
     kernels = []
     for name, source, repl, launches in (
             ("paged_decode", src, replaces,
-             runs[0]["launches"]["paged_decode"]),
+             runs["pipelined"]["launches"]["paged_decode"]),
             ("paged_decode_fp8", src, replaces,
              qruns["fp8"]["launches"]["paged_decode"]),
             ("paged_decode_int8", src, replaces,
              qruns["int8"]["launches"]["paged_decode"]),
-            ("flash_fwd", fsrc, freplaces, runs[0]["launches"]["flash_fwd"]),
+            ("flash_fwd", fsrc, freplaces, runs["pipelined"]["launches"]["flash_fwd"]),
             ("paged_decode_mla", src, replaces,
-             mruns[0]["launches"]["paged_decode"]),
+             mruns["pipelined"]["launches"]["paged_decode"]),
             ("paged_decode_mla_fp8", src, replaces,
              mq["fp8"]["launches"]["paged_decode"]),
             ("paged_decode_mla_int8", src, replaces,
              mq["int8"]["launches"]["paged_decode"]),
             ("flash_fwd_mla", fsrc, freplaces,
-             mruns[0]["launches"]["flash_fwd"]),
+             mruns["pipelined"]["launches"]["flash_fwd"]),
             ("paged_decode_moe", src, replaces,
-             moe_runs[0]["launches"]["paged_decode"]),
+             moe_runs["pipelined"]["launches"]["paged_decode"]),
             ("flash_fwd_moe", fsrc, freplaces,
-             moe_runs[0]["launches"]["flash_fwd"]),
+             moe_runs["pipelined"]["launches"]["flash_fwd"]),
             ("paged_decode_qwen", src, replaces,
              qwen["pipelined"]["launches"]["paged_decode"]),
             ("paged_decode_llama4", src, replaces,
@@ -1415,6 +1570,7 @@ def main() -> None:
             "share_of_bound": timed["share_of_bound"],
             "bf16_ms": bf16["ms"], "bf16_bound_ms": bf16["bound_ms"],
             "bf16_library_ms": bf16["library_ms"]})
+    emit({"phase": "time", "script_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -1466,9 +1622,179 @@ def run_spill_phase(cfg, params, prompts) -> None:
           "ok": True})
 
 
-def run_moe_phase(ksum: dict) -> list:
+def chaos_check(cfg, params, prompts, eng, tag: str,
+                degraded_ok=()) -> dict:
+    """The end of a chaos cell: the engine drained, no frame leaked or
+    aliased, no pool moved, and every transcript full length and greedy
+    (teacher-forced), or, for a request in ``degraded_ok`` that finished
+    degraded, a greedy prefix.  Returns the cell's row."""
+    cl = eng.cluster
+    if cl.active or cl.waiting or eng._inflight is not None:
+        fail(f"{tag}: the engine did not drain")
+    fpi = cl.page_table.frames_per_instance
+    for s, (free, held) in cl.page_table.frame_audit().items():
+        ok = (held == 0 and free in (0, fpi) if s in cl.dead_instances
+              else free + held == fpi)
+        if not ok:
+            fail(f"{tag}: instance {s} frames free {free} held {held}")
+    for rid, res in eng.results.items():
+        if res.recovered is False:
+            if rid not in degraded_ok or not res.tokens:
+                fail(f"{tag}: request {rid} finished degraded")
+        elif len(res.tokens) != NEW_TOKENS:
+            fail(f"{tag}: request {rid} emitted {len(res.tokens)} tokens")
+    if eng.aot.stats.donation_copies:
+        fail(f"{tag}: pools moved: {eng.aot.stats.as_dict()}")
+    ties = teacher_forced_check(cfg, params, prompts, eng.results, tag, None)
+    return {"phase": "chaos", "cell": tag, "hot_path_stats":
+            dict(eng.hot_path_stats), "aot": eng.aot.stats.as_dict(),
+            "tokens": [len(r.tokens) for r in eng.results.values()],
+            "recovered": [r.recovered for r in eng.results.values()],
+            "ties_tolerated": ties, "frames_leaked": 0}
+
+
+def chaos_prompts(cfg, lens) -> list:
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, (L,)) for L in lens]
+
+
+def join_with_prewarm(eng, victim: int, tag: str) -> set:
+    """``eng.join_instance(victim)``; the prewarm must capture a graph for
+    each bucket it adds, none online, and leave every pool byte as it was.
+    Returns the added bucket keys."""
+    st = eng.aot.stats
+    torch.cuda.synchronize()
+    pools = {k: v.clone() for k, v in eng.state.items()}
+    keys, captured, online = (set(eng.aot.cached_keys()), st.captured,
+                              st.online_compiles)
+    eng.join_instance(victim)
+    torch.cuda.synchronize()
+    new = set(eng.aot.cached_keys()) - keys
+    if (not new or st.captured - captured != len(new)
+            or st.online_compiles != online):
+        fail(f"{tag}: the prewarm captured {st.captured - captured} graphs "
+             f"for {new}")
+    changed = [k for k, v in eng.state.items()
+               if not torch.equal(v.view(torch.uint8),
+                                  pools[k].view(torch.uint8))]
+    if changed:
+        fail(f"{tag}: the prewarm changed {changed}")
+    return new
+
+
+def run_chaos_phase(cfg, params) -> None:
+    """TinyLlama at (4, 2) with graphs on: an instance killed between a
+    step's dispatch and its harvest (the 2000-token request's MoE binding,
+    at step 3 of the main path's traffic; its lost KV re-prefilled, every
+    transcript greedy); a kill, then the instance's join with prewarm, in
+    two cells: four 120-token requests (join at step 8: the prewarm
+    captures the wider-ring graph, pools bit-equal across it, and
+    ``online_compiles`` stays flat to the end) and three 250-token
+    requests (join at step 4: escalation recruits the joiner and a
+    prewarmed graph replays; captures the join makes on the hot path are
+    counted); and a forced drain of the instance holding most of a
+    600-token request's KV in pools of 256 tokens (fail semantics: it
+    finishes degraded with a greedy prefix, the others full).  No frame
+    leaks in any cell."""
+    rows = []
+    with torch.no_grad():
+        # -- kill between dispatch and harvest --
+        prompts = chaos_prompts(cfg, PROMPT_LENS)
+        eng = make_engine(cfg, params, prompts, True)
+        for step in range(200):
+            if not eng.pending:
+                break
+            if step == 3:
+                if eng._inflight is None:
+                    fail("chaos kill: no step in flight")
+                eng.fail_instance(eng.cluster.active[5].moe_binding)
+            eng.step()
+        hp = eng.hot_path_stats
+        if (hp["failures"] != 1 or hp["degraded_finishes"]
+                or hp["reprefill_tokens"] <= 0
+                or eng.results[5].recovered is not True):
+            fail(f"chaos kill: {hp}")
+        rows.append(chaos_check(cfg, params, prompts, eng, "kill"))
+        eng.close()
+        del eng
+        free_memory()
+
+        # -- kill, then join with prewarm --
+        for tag, lens, victim_rid, join_at in (("join", (120,) * 4, 0, 8),
+                                               ("join recruit", (250,) * 3,
+                                                1, 4)):
+            prompts = chaos_prompts(cfg, lens)
+            eng = make_engine(cfg, params, prompts, True)
+            cl, st = eng.cluster, eng.aot.stats
+            seen = {"loaded": False, "replayed": 0, "online": []}
+            for step in range(200):
+                if not eng.pending:
+                    break
+                if step == 2:
+                    if eng._inflight is None:
+                        fail(f"chaos {tag}: no step in flight")
+                    victim = cl.active[victim_rid].moe_binding
+                    eng.fail_instance(victim)
+                if step == join_at:
+                    new = join_with_prewarm(eng, victim, f"chaos {tag}")
+                before = st.online_compiles
+                eng.step()
+                if step >= join_at:
+                    seen["loaded"] |= cl.kv_load(victim) > 0
+                    seen["replayed"] += eng.last_bucket in new
+                    if st.online_compiles > before:
+                        seen["online"].append(list(eng.last_bucket))
+            if eng.hot_path_stats["joins"] != 1:
+                fail(f"chaos {tag}: {eng.hot_path_stats}")
+            if tag == "join" and seen["online"]:
+                fail(f"chaos join: captures on the hot path after the join "
+                     f"{seen['online']}")
+            if tag == "join recruit" and not (seen["loaded"]
+                                              and seen["replayed"]):
+                fail(f"chaos join recruit: joiner loaded {seen['loaded']}, "
+                     f"prewarmed replays {seen['replayed']}")
+            row = chaos_check(cfg, params, prompts, eng, tag)
+            row.update(prewarmed=sorted(map(list, new)),
+                       joiner_loaded=seen["loaded"],
+                       prewarmed_replays=seen["replayed"],
+                       online_after_join=seen["online"])
+            rows.append(row)
+            eng.close()
+            del eng
+            free_memory()
+
+        # -- forced drain: fail semantics for what cannot be evacuated --
+        prompts = chaos_prompts(cfg, (600, 100, 48))
+        eng = make_engine(cfg, params, prompts, True, kv_capacity_tokens=256)
+        cl = eng.cluster
+        eng.step()
+        eng.step()
+        if cl.waiting or eng._inflight is None:
+            fail("chaos drain: requests waiting or no step in flight")
+        shards = cl.page_table.shard_tokens(0)
+        victim = max(shards, key=shards.get)
+        eng.drain_instance(victim, force=True)
+        if (victim not in cl.dead_instances
+                or cl.page_table.instance_used_tokens(victim)
+                or eng.results[0].recovered is not False):
+            fail(f"chaos drain: {eng.hot_path_stats}")
+        for _ in range(200):
+            if not eng.pending:
+                break
+            eng.step()
+        rows.append(chaos_check(cfg, params, prompts, eng, "forced drain",
+                                degraded_ok=(0,)))
+        eng.close()
+        del eng
+        free_memory()
+    for row in rows:
+        emit(row)
+    emit({"phase": "chaos", "ok": True, "cells": len(rows)})
+
+
+def run_moe_phase(ksum: dict) -> dict:
     """Phase 10: Phi-3.5-MoE at full width, 8 of 32 layers.  Returns the
-    (4, 2) pipelined, non-pipelined and (2, 4) runs' rows."""
+    (4, 2) runs' rows by name (``both_ways``)."""
     cfg = replace(get_config("phi3.5-moe-42b-a6.6b"), num_layers=PHI_LAYERS,
                   capacity_factor=PHI_CAPACITY_FACTOR)
     torch.cuda.reset_peak_memory_stats()
@@ -1483,13 +1809,11 @@ def run_moe_phase(ksum: dict) -> list:
           "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, (L,)) for L in PROMPT_LENS]
-    runs = [run_engine(cfg, params, prompts, pipeline=p,
-                       tag=f"moe {'pipelined' if p else 'non-pipelined'}")
-            for p in (True, False)]
+    runs = both_ways(cfg, params, prompts, "moe")
     run_engine(cfg, params, prompts, True, tag="moe 2x4 pipelined",
                num_instances=2, instances_per_node=2, tp=4,
                buckets=CPBuckets(edges=(256,), degrees=(1, 2)))
-    args, _ = profile_engine(cfg, params, prompts)
+    args, _ = runs["captured"]
     profile_prefill(cfg, params, prompts[int(np.argmax(PROMPT_LENS))])
     for a in (args, as_bf16_call(args)):
         row = paged_row(a, a[0].dtype, "moe main path", name="paged_decode_moe")
@@ -1523,13 +1847,15 @@ def run_archetype_phase(phase: str, cfg, ksum: dict, runs, *, name: str,
                         quant=()) -> dict:
     """Phases 11-13: one model at full width (depth as ``cfg`` cuts it),
     random float32 weights (seed 0) with perturbed biases and q/k norm
-    scales, through the engine on the main path's traffic: each of
+    scales, through the engine on the main path's traffic: the (4, 2) runs
+    with graphs on and off and their profiles (``both_ways``), each of
     ``runs`` ((tag, pipeline, engine settings)) checked teacher-forced,
-    each of ``quant``'s kv dtypes under the tolerance contract with its
-    largest paged call re-checked and re-timed (summary name ``name``_kv),
-    then the profile of phase 4 and the paged kernel re-checked and
-    re-timed on the largest call the main path made (``name``).  Returns
-    the runs' rows by tag (and by kv dtype).  The weights are freed."""
+    each of ``quant``'s kv dtypes under the tolerance contract (recorder
+    run) and bit-equal with graphs, its largest paged call re-checked and
+    re-timed (summary name ``name``_kv), then the paged kernel re-checked
+    and re-timed on the largest call the main path made (``name``).
+    Returns the runs' rows by tag (and by kv dtype).  The weights are
+    freed."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, seed=0, device=DEV,
@@ -1546,9 +1872,10 @@ def run_archetype_phase(phase: str, cfg, ksum: dict, runs, *, name: str,
           "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, (L,)) for L in PROMPT_LENS]
-    out = {tag: run_engine(cfg, params, prompts, pipeline,
-                           tag=f"{phase} {tag}", **kw)
-           for tag, pipeline, kw in runs}
+    out = both_ways(cfg, params, prompts, phase)
+    out.update({tag: run_engine(cfg, params, prompts, pipeline,
+                                tag=f"{phase} {tag}", **kw)
+                for tag, pipeline, kw in runs})
 
     def recheck(args, sc, label, row_name):
         for a in (args, as_bf16_call(args)):
@@ -1557,12 +1884,12 @@ def run_archetype_phase(phase: str, cfg, ksum: dict, runs, *, name: str,
             ksum.setdefault(row_name, []).append(row)
 
     for kv_dtype in quant:
-        out[kv_dtype] = run = run_engine(cfg, params, prompts, True,
-                                         kv_dtype=kv_dtype,
-                                         tag=f"{phase} {kv_dtype} pipelined")
+        run, out[kv_dtype] = run_pair(cfg, params, prompts, True,
+                                      kv_dtype=kv_dtype,
+                                      tag=f"{phase} {kv_dtype} pipelined")
         recheck(*run.pop("captured"), f"{phase} main path",
                 f"{name}_{kv_dtype}")
-    args, sc = profile_engine(cfg, params, prompts)
+    args, sc = out["captured"]
     profile_prefill(cfg, params, prompts[int(np.argmax(PROMPT_LENS))])
     recheck(args, sc, f"{phase} main path", name)
     del params

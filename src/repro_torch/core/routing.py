@@ -386,14 +386,17 @@ def _round_of(cluster: ClusterState, m: int, s: int) -> int:
 
 class DeviceTables:
     """Preallocated device tensors (and pinned host staging on CUDA) for the
-    routing tables, one set per table shape.
+    routing tables, one set per set of table shapes.
 
-    The decode hot path uploads a table every iteration; with these buffers
-    the upload allocates nothing after a shape's first step.  A CUDA upload
-    copies the ``TableArena`` host arrays into pinned staging and from there
-    into the device tensors with ``non_blocking=True``.  Reusing one staging
-    set per shape is safe because the engine harvests iteration t-1 (whose
-    copy precedes its tokens on the stream) before it uploads iteration t.
+    A set is ONE flat int32 device buffer (and one pinned host buffer),
+    viewed as each table, so a CUDA upload writes the ``TableArena`` host
+    arrays into the pinned views and copies the whole set with one
+    ``non_blocking`` copy.  The device views keep their storage for the
+    engine's lifetime: a bucket's CUDA graph reads them where it captured
+    them (``core/aot.py``), so buckets that differ only in R share one set,
+    safely, as their replays never overlap.  Reusing one staging set per
+    shape is safe because the engine harvests iteration t-1 (whose copy
+    precedes its tokens on the stream) before it uploads iteration t.
     """
 
     def __init__(self, device):
@@ -401,34 +404,47 @@ class DeviceTables:
         self.device = torch.device(device)
         self._bufs: dict = {}
 
-    def _buffers(self, tbl: RoutingTables):
+    def _set(self, shapes: dict):
+        """(device buffer, pinned host buffer or None, {name: (device
+        view, host numpy view or None)}) for ``shapes`` {name: shape}."""
         import torch
-        key = tuple((f.name, getattr(tbl, f.name).shape) for f in fields(tbl)
-                    if isinstance(getattr(tbl, f.name), np.ndarray))
+        key = tuple(sorted((n, tuple(int(d) for d in s))
+                           for n, s in shapes.items()))
         bufs = self._bufs.get(key)
         if bufs is None:
-            pin = self.device.type == "cuda"
-            bufs = {}
-            for name, shape in key:
-                dev = torch.empty(shape, dtype=torch.int32, device=self.device)
-                host = (torch.empty(shape, dtype=torch.int32, pin_memory=True)
-                        if pin else None)
-                bufs[name] = (dev, host)
-            self._bufs[key] = bufs
+            sizes = [int(np.prod(s)) for _, s in key]
+            dev = torch.empty(sum(sizes), dtype=torch.int32,
+                              device=self.device)
+            host = (torch.empty(sum(sizes), dtype=torch.int32,
+                                pin_memory=True)
+                    if self.device.type == "cuda" else None)
+            views, off = {}, 0
+            for (name, shape), n in zip(key, sizes):
+                views[name] = (dev[off:off + n].view(shape),
+                               None if host is None else
+                               host[off:off + n].numpy().reshape(shape))
+                off += n
+            bufs = self._bufs[key] = (dev, host, views)
         return bufs
+
+    def buffers(self, shapes: dict) -> dict:
+        """The device tensors for tables of ``shapes`` {name: shape}."""
+        return {n: d for n, (d, _) in self._set(shapes)[2].items()}
 
     def upload(self, tbl: RoutingTables) -> dict:
         import torch
-        out = {}
-        for name, (dev, host) in self._buffers(tbl).items():
-            v = getattr(tbl, name)
-            if host is None:
-                dev.copy_(torch.from_numpy(np.ascontiguousarray(v, np.int32)))
+        arrays = {f.name: getattr(tbl, f.name) for f in fields(tbl)
+                  if isinstance(getattr(tbl, f.name), np.ndarray)}
+        dev, host, views = self._set({n: v.shape for n, v in arrays.items()})
+        for name, (d, h) in views.items():
+            if h is None:
+                d.copy_(torch.from_numpy(np.ascontiguousarray(arrays[name],
+                                                              np.int32)))
             else:
-                host.numpy()[...] = v
-                dev.copy_(host, non_blocking=True)
-            out[name] = dev
-        return out
+                h[...] = arrays[name]
+        if host is not None:
+            dev.copy_(host, non_blocking=True)
+        return {n: d for n, (d, _) in views.items()}
 
 
 def as_device_arrays(tbl: RoutingTables, device_tables: DeviceTables) -> dict:

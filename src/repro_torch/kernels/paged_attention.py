@@ -49,6 +49,9 @@ the wrapper runs it for CPU tensors and launches the kernel for CUDA ones.
 ``LAUNCHES`` counts wrapper calls that launched the kernel (one per call,
 whether or not the merge kernel ran too), and ``LAUNCHES_BY_PAGE`` counts
 them by page dtype name, so a run can tell which variant it went through.
+A call made while a CUDA graph is being captured launches nothing: it is
+tallied in ``CAPTURED``, and the graph counts it at each replay
+(``core/aot.py``).
 """
 from __future__ import annotations
 
@@ -63,6 +66,8 @@ from .ref import paged_decode_attention as plain
 
 LAUNCHES = 0
 LAUNCHES_BY_PAGE: dict = {}
+# calls recorded into the graph under capture, by page dtype name
+CAPTURED: dict = {}
 
 _Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 # page dtype of a quantized pool -> the C entry's kv_type code
@@ -78,6 +83,13 @@ _KPS = 36          # the kernel's score row stride (kPS), in floats
 # blocks per SM that ``plan_split`` aims for when every row is full: a
 # split's units run one after another, so shorter splits finish sooner
 BLOCKS_PER_SM = 8
+
+
+def count_launches(name: str, n: int = 1) -> None:
+    """Count ``n`` launches of the kernel on pages of dtype ``name``."""
+    global LAUNCHES
+    LAUNCHES += n
+    LAUNCHES_BY_PAGE[name] = LAUNCHES_BY_PAGE.get(name, 0) + n
 
 
 @functools.cache
@@ -224,7 +236,6 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     their own strides (see the module note).  Returns out [N, Hq, Dv] in
     q's dtype and lse [N, Hq] float32.
     """
-    global LAUNCHES
     if q.device.type == "cpu":
         return plain(q, k_pages, v_pages, block_tables, lengths, scale=scale,
                      k_scale=k_scale, v_scale=v_scale)
@@ -281,7 +292,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
                  *k_st, *v_st,
                  float(scale), _Q_TYPES[q.dtype], kv_type, stream)
     build.check(rc, "paged_decode")
-    LAUNCHES += 1
     name = str(k_pages.dtype).replace("torch.", "")
-    LAUNCHES_BY_PAGE[name] = LAUNCHES_BY_PAGE.get(name, 0) + 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] = CAPTURED.get(name, 0) + 1
+    else:
+        count_launches(name)
     return out, lse

@@ -11,6 +11,12 @@ Decode hot path:
   * The serve state lives on the device for the engine's lifetime and every
     step updates the pools in place (``AOTGraphEngine.note_donation``
     audits that the pools' ``data_ptr`` never moves).
+  * On CUDA each bucket's step is one CUDA graph (``core/aot.py``): a
+    bucket's first step runs eagerly and is then captured, later steps
+    replay it, and every replay checks that no params, pool or table
+    buffer moved.  ``cuda_graphs=False`` keeps the eager step on CUDA; the
+    CPU always runs it.  Every write to the pools outside the step (prefill
+    scatter, re-shard, re-prefill) lands in place in the captured storage.
   * Iterations are pipelined one step ahead: ``step`` lowers iteration t's
     tables while the device still computes iteration t-1 (PyTorch enqueues
     CUDA work asynchronously), then harvests t-1's tokens — copied at
@@ -47,10 +53,18 @@ shard can take the KV, finishes it with a request-level OOM
 instance's KV live and ``compact`` forces one relaxation pass, both
 through the same re-shard.
 
+Fault tolerance and elasticity: ``fail_instance`` (crash semantics, safe
+between dispatch and harvest: the in-flight entries the dead instance
+touched are voided and their bookkeeping rolled back; lost KV ranges are
+re-prefilled into a replacement placement, or the request finishes
+degraded when the cluster lacks headroom), ``join_instance`` (the rejoined
+instance's wider-ring buckets are captured off the hot path) and the
+forced drain (fail semantics for what cannot be evacuated).
+
 Not ported yet, each raising ``NotImplementedError`` where the reference
 would act: SSM and encoder-decoder models (items 11-12); the prefix
-cache and its data-plane copies, failure, forced drain and join,
-admission control and prefill cells (item 13).
+cache and its data-plane copies, admission control and prefill cells
+(item 13).
 """
 from __future__ import annotations
 
@@ -65,7 +79,7 @@ from ..configs.base import ModelConfig
 from ..core import dcp, migrate, routing
 from ..core.aot import AOTGraphEngine
 from ..core.bucketing import CPBuckets, DEFAULT_BUCKETS, ShapeBuckets
-from ..core.comm import node_local_rounds
+from ..core.comm import node_local_rounds, ring_round
 from ..core.page_table import KVSpillError
 from ..core.scheduler import BaseScheduler, DualBalancedScheduler
 from ..core.state import ClusterState, Request
@@ -81,6 +95,11 @@ class GenResult:
     # True when the request was finished early by a clean request-level OOM
     # (KV spill with no shard headroom anywhere to escalate into)
     oom: bool = False
+    # failure-recovery outcome: None = never touched by an instance failure;
+    # True = recovered (lost ranges re-prefilled: tokens equal a
+    # from-scratch run); False = degraded finish (no headroom: finished
+    # early with the tokens it had, a prefix of a from-scratch run)
+    recovered: bool | None = None
 
 
 @dataclass
@@ -90,7 +109,12 @@ class _Inflight:
     event: object                # CUDA event recorded after the copy, or None
     # (rid, request, instance, slot, is_last) snapshot at dispatch time
     slots: list
-    # [I, M, V] device logits when the engine keeps them, else None
+    # rid -> the instances this iteration touched for the request (its KV
+    # shard holders and its slot's instance) at dispatch: the blast radius
+    # of an instance failure between dispatch and harvest
+    holders: dict = field(default_factory=dict)
+    # [I, M, V] device logits when the engine keeps them, else None (a
+    # graph's static logits: read at harvest, before the next replay)
     logits: object = None
 
 
@@ -113,11 +137,15 @@ class NanoCPEngine:
                  audit_donation_every_step: bool = False,
                  admission=None, prefix_cache: bool = False,
                  prefill_cells: int = 0, kv_dtype: str = "bf16",
-                 keep_logits: bool = False, device="cuda"):
+                 keep_logits: bool = False, device="cuda",
+                 cuda_graphs: bool | None = None):
         """``params``: prefill params (``models.transformer`` layout) on
         ``device``.  The virtual mesh is ``num_instances`` x ``tp``.  Pools
         are float32, as the reference engine allocates them, or fp8/int8
-        codes with per-page scales for ``kv_dtype`` "fp8"/"int8"."""
+        codes with per-page scales for ``kv_dtype`` "fp8"/"int8".
+        ``cuda_graphs``: replay one CUDA graph per bucket (the default on
+        CUDA; asking for it on the CPU raises) or, False, dispatch the
+        step eagerly."""
         transformer.check_supported(cfg)
         quant.check_kv_dtype(kv_dtype)
         if admission is not None:
@@ -127,6 +155,11 @@ class NanoCPEngine:
         if prefill_cells:
             raise _not_ported("disaggregated prefill cells", 13)
         self.device = resolve_device(device)
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        if cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs=True needs a CUDA engine, got "
+                             f"device {self.device}")
         self.cfg = cfg
         self.tp = tp
         self.keep_logits = keep_logits
@@ -167,7 +200,9 @@ class NanoCPEngine:
                                                           instances_per_node),
                                   key_tag=(kv_dtype if
                                            quant.is_quantized(kv_dtype)
-                                           else None))
+                                           else None),
+                                  graph_inputs=(self._graph_inputs
+                                                if cuda_graphs else None))
         self._scatter = migrate.PrefillScatter(cfg, self._dims0, num_instances)
         self._reshard = migrate.KVReshard(self._scatter)
         self._arena = routing.TableArena()
@@ -192,7 +227,9 @@ class NanoCPEngine:
             "steps": 0, "async_token_fetches": 0, "speculative_slots": 0,
             "prefill_eos_finishes": 0, "escalations": 0, "relaxations": 0,
             "relax_tokens": 0, "reshard_tokens": 0, "spill_escalations": 0,
-            "oom_finishes": 0, "drains": 0, "compacts": 0}
+            "oom_finishes": 0, "drains": 0, "compacts": 0, "failures": 0,
+            "recovered_tokens": 0, "reprefill_tokens": 0,
+            "degraded_finishes": 0, "joins": 0}
 
     # ------------------------------------------------------------------ #
     @staticmethod
@@ -229,12 +266,6 @@ class NanoCPEngine:
     def add_audio_request(self, *args, **kwargs):
         raise _not_ported("encoder-decoder (whisper) serving", 12)
 
-    def fail_instance(self, instance: int, now: float | None = None):
-        raise _not_ported("instance failure recovery", 13)
-
-    def join_instance(self, instance: int, prewarm: bool = True):
-        raise _not_ported("elastic instance join", 13)
-
     def fork_request(self, parent_rid: int, max_new_tokens: int, **kwargs):
         raise _not_ported("request fork (prefix-cache CoW)", 13)
 
@@ -259,6 +290,16 @@ class NanoCPEngine:
             "merge_round": (I, M, W), "merge_peer_row": (I, M, W),
         }
         return dcp.build_decode_step(self.cfg, d), table_shapes
+
+    def _graph_inputs(self, table_shapes: dict):
+        """What a bucket's graph captures: the decode params, the serve
+        state and the table buffers of the bucket's shapes."""
+        return (self.decode_params, self.state,
+                self._dev_tables.buffers(table_shapes))
+
+    def close(self) -> None:
+        """Release the step cache (the CUDA graphs and their pool)."""
+        self.aot.clear()
 
     # ------------------------------------------------------------------ #
     def _prefill_batch(self, reqs: list, now: float) -> list:
@@ -366,23 +407,207 @@ class NanoCPEngine:
         the instance dead, and rebalance MoE bindings off it.  The drained
         instance's requests keep decoding with unchanged tokens.  Raises
         ``MemoryError`` (instance left serving, page table untouched) when
-        the cluster cannot take its KV.  The forced drain (deadline
-        fallback with fail semantics) comes with fault tolerance."""
-        if force:
-            raise _not_ported("forced drain (fail semantics for stragglers)",
-                              13)
+        the cluster cannot take its KV.
+
+        ``force=True`` is the drain-deadline fallback: requests whose KV
+        cannot be evacuated take fail semantics (their KV on the instance
+        is dropped and recovered: re-prefill or a degraded finish), so a
+        forced drain always completes with the instance empty and dead."""
         # dead first so the evacuation planner never picks it as a receiver;
         # rolled back when evacuate raises
         self.cluster.dead_instances.add(instance)
+        stragglers = []
         try:
-            escalations = self.scheduler.evacuate(self.cluster, instance)
+            if force:
+                escalations, stragglers = self.scheduler.evacuate(
+                    self.cluster, instance, partial=True)
+            else:
+                escalations = self.scheduler.evacuate(self.cluster, instance)
         except MemoryError:
             self.cluster.dead_instances.discard(instance)
             raise
         self._apply_escalations(escalations)
+        if stragglers:
+            # a planned drop, not a crash: the in-flight iteration stays
+            # valid, so only the cluster-level partial drop runs and the
+            # lost ranges re-prefill or degrade as after a crash
+            self._recover(self.cluster.fail_instance(instance), self._now())
         self.scheduler.rebalance(self.cluster)
         self.hot_path_stats["drains"] += 1
         return escalations
+
+    # ------------------------------------------------------------------ #
+    def fail_instance(self, instance: int, now: float | None = None) -> list:
+        """Abrupt instance failure (crash semantics), safe at any point of
+        the pipelined loop, between dispatch and harvest included.
+
+        (1) The in-flight entries whose computation touched the dead
+        instance (a KV shard or the decode slot lived there) are voided and
+        their dispatch-time bookkeeping rolled back, so no token of the dead
+        instance is applied and no slot is freed twice; (2)
+        ``ClusterState.fail_instance`` frees only the dead instance's frames
+        and reports the lost token ranges; (3) each affected request is
+        recovered by re-prefilling just those ranges into a replacement
+        placement, or finishes degraded when the cluster lacks headroom.
+        Returns the requests finished (degraded) here."""
+        now = self._now() if now is None else now
+        cl = self.cluster
+        if not 0 <= instance < cl.num_instances:
+            raise ValueError(f"fail_instance({instance}): the engine's mesh "
+                             f"has {cl.num_instances} instances")
+        if instance in cl.dead_instances:
+            return []
+        self.hot_path_stats["failures"] += 1
+        infl = self._inflight
+        if infl is not None:
+            keep = []
+            for ent in infl.slots:
+                rid, req, i, b, last = ent
+                if i != instance and instance not in infl.holders.get(
+                        rid, frozenset()):
+                    keep.append(ent)
+                    continue
+                # void the speculative result; the next dispatch derives the
+                # same token again from next_tok
+                req.generated -= 1
+                if last:
+                    # length-finished at dispatch, pages and slot already
+                    # freed: resurrect it; its whole context is lost now,
+                    # and recovery below re-prefills (or degrades) it
+                    cl.finished.remove(req)
+                    req.status = "running"
+                    req.finish_time = -1.0
+                    cl.active[rid] = req
+                    if (req.moe_binding >= 0 and req.moe_binding != instance
+                            and req.moe_binding not in cl.dead_instances):
+                        cl.move_slot(rid, req.moe_binding)
+                else:
+                    # un-append this step's input token (i is the
+                    # dispatch-time MoE shard)
+                    cl.page_table.pop_token(rid, i)
+            infl.slots = keep
+        return self._recover(cl.fail_instance(instance), now)
+
+    def _recover(self, records: list, now: float) -> list:
+        """Typed recovery of ``ClusterState.fail_instance`` records:
+        re-prefill of the lost ranges into a replacement WaterFill
+        placement, or a degraded finish.  Returns the requests finished
+        (degraded) here."""
+        cl = self.cluster
+        pt = cl.page_table
+        ledger = {s: pt.free_frames(s) for s in cl.alive_instances()}
+        items, finished = [], []
+        for rec in records:
+            req = rec.req
+            rid = req.rid
+            if rid not in cl.active:
+                continue
+            resident = sum(pt.shard_tokens(rid).values())
+            ranges = list(rec.lost)
+            if resident == 0 and not ranges and req.length > 0:
+                # nothing survived anywhere (or the request was resurrected
+                # from a dispatch-time finish): the whole context is lost
+                ranges = [(0, req.prompt_len + req.generated)]
+            lost = sum(n for _, n in ranges)
+            split = None
+            ok = req.moe_binding >= 0
+            if ok and lost > 0:
+                split = self.scheduler.place_recovery(cl, req, lost, ledger)
+                ok = split is not None
+            if not ok:
+                # degraded finish: complete now with the tokens it has; a
+                # failure never hangs a request or leaks its frames
+                self.results[rid].recovered = False
+                if self._inflight is not None:
+                    self._inflight.slots = [e for e in self._inflight.slots
+                                            if e[0] != rid]
+                cl.finish(req, now)
+                req.status = "degraded"
+                self.finished.append(req)
+                finished.append(req)
+                self.hot_path_stats["degraded_finishes"] += 1
+                continue
+            if lost == 0:
+                continue                 # only the binding/slot was touched
+            self.results[rid].recovered = True
+            self.hot_path_stats["recovered_tokens"] += resident
+            self.hot_path_stats["reprefill_tokens"] += lost
+            positions, coords = pt.restore_ranges(rid, split, ranges)
+            req.kv_binding = sorted(set(req.kv_binding) | set(split)
+                                    | {req.moe_binding})
+            items.append((req, positions, coords))
+        if items:
+            self._reprefill_ranges(items)
+        return finished
+
+    def _reprefill_ranges(self, items: list) -> None:
+        """Re-prefill only the lost token ranges of each recovering request:
+        the prefill forward over prompt + every token recorded so far (all
+        of its KV positions, at any pipeline point), its KV at the lost
+        positions scattered in place into the replacement placement with
+        one call.  Surviving shards are never read or rewritten; MLA
+        re-prefills its latent."""
+        ps, khs = self._scatter.ps, self._scatter.khs
+        kv_k, kv_v, kv_coords = [], [], []
+        for req, positions, coords in items:
+            seq = self._prompts[req.rid] + self.results[req.rid].tokens
+            toks = torch.as_tensor(seq, device=self.device)[None, :]
+            _, caches = transformer.forward(self.cfg, self.params, toks,
+                                            collect_kv=True,
+                                            device=self.device)
+            pos = torch.as_tensor(positions, device=self.device)
+            a = torch.stack([c["kv"][0][:, 0] for c in caches], dim=1)[:, :, pos]
+            b = torch.stack([c["kv"][1][:, 0] for c in caches], dim=1)[:, :, pos]
+            if self.cfg.is_mla:
+                kv_k.append(torch.cat([a, b], dim=-1)[..., None, :])
+            else:
+                kv_k.append(a.reshape(*a.shape[:3], khs, -1))
+                kv_v.append(b.reshape(*b.shape[:3], khs, -1))
+            inst, frame, off = coords
+            kv_coords.append(np.stack([inst, frame % ps, frame // ps, off]))
+        self._scatter.scatter_kv(self.state, torch.cat(kv_k, dim=2),
+                                 torch.cat(kv_v, dim=2) if kv_v else None,
+                                 np.concatenate(kv_coords, axis=1))
+
+    def join_instance(self, instance: int, prewarm: bool = True) -> None:
+        """Elastic scale-up: a failed or drained instance of the engine's
+        mesh (fixed at construction) re-enters the zig-zag ring with a
+        fresh pool; relaxation and escalation then spread load onto it.
+        ``prewarm`` captures the buckets the wider ring reach makes
+        reachable off the hot path, so recruiting the joiner replays a
+        graph instead of capturing one."""
+        cl = self.cluster
+        if not 0 <= instance < cl.num_instances:
+            raise ValueError(f"join_instance({instance}): the engine's mesh "
+                             f"has {cl.num_instances} instances")
+        cl.join_instance(instance)
+        self.hot_path_stats["joins"] += 1
+        if prewarm:
+            self._prewarm_join(instance)
+
+    def _prewarm_join(self, instance: int) -> None:
+        """Capture each cached bucket at the ring reach the joiner adds (the
+        most zig-zag rounds between it and an alive peer of its window
+        segment)."""
+        cl = self.cluster
+        win = cl.window
+        need = 0
+        for p in cl.alive_instances():
+            if p != instance and p // win == instance // win:
+                need = max(need, ring_round(instance - p, win),
+                           ring_round(p - instance, win))
+        if need <= 0:
+            return
+        have = set(self.aot.cached_keys())
+        new_keys = []
+        for key in sorted(have, key=lambda k: k[:5]):
+            M, S, MB, W, R = key[:5]
+            if S == 0:
+                continue
+            k2 = self.aot.quantise(M, S, MB, W, max(R, need))
+            if k2 not in have and k2 not in new_keys:
+                new_keys.append(k2)
+        self.aot.capture(new_keys)
 
     def compact(self) -> list:
         """Planned maintenance, the relaxation twin of ``drain_instance``:
@@ -547,18 +772,22 @@ class NanoCPEngine:
 
         # -- dispatch-time bookkeeping: length-based finishes are
         #    deterministic, so free their pages/slots right away ------------
-        snapshot, length_done = [], []
+        snapshot, length_done, holders = [], [], {}
+        pt = self.cluster.page_table
         for rid in list(self.cluster.active):
             req = self.cluster.active[rid]
             i, b = self.cluster.slot_map[rid]
             req.generated += 1
             last = len(self.results[rid].tokens) + 1 >= req.max_new_tokens
             snapshot.append((rid, req, i, b, last))
+            # recorded before length finishes free the pages
+            holders[rid] = frozenset(
+                s for s, t in pt.shard_tokens(rid).items() if t > 0) | {i}
             if last:
                 length_done.append(req)
         for req in length_done:
             self.cluster.finish(req, now)
-        self._inflight = _Inflight(host, event, snapshot,
+        self._inflight = _Inflight(host, event, snapshot, holders,
                                    step_logits if self.keep_logits else None)
         self.iterations += 1
         self.last_bucket = key

@@ -122,11 +122,12 @@ def _apply_moves(reshard, state, records):
      (2, 4, None, MOE, "routed"),
      (4, 2, None, "qwen1.5-0.5b", "routed"),
      (4, 2, None, "llama4-scout-17b-a16e", "routed"),
-     (2, 4, None, "deepseek-v3", "routed")],
+     (2, 4, None, "deepseek-v3", "routed"),
+     (8, 1, None, "tinyllama-1.1b", "routed")],
     ids=["4x2", "2x4-striped", "2x2-kv4-grouped", "minicpm3-4x2",
          "minicpm3-2x4", "4x2-dense", "minicpm3-2x4-dense", "phi3.5-moe-4x2",
          "phi3.5-moe-2x4", "qwen1.5-4x2", "llama4-scout-4x2",
-         "deepseek-v3-2x4"])
+         "deepseek-v3-2x4", "8x1-wide-ring"])
 def test_dcp_decode_equals_reference(I, TP, kv, arch, backend):
     jcfg, jparams, cfg, params = _models(kv, arch)
     _, khs, ps = dcp.attn_tp_geometry(cfg, TP)
@@ -395,8 +396,10 @@ def _code_step(codes: np.ndarray, kv_dtype: str) -> np.ndarray:
 @pytest.mark.parametrize("kv_dtype,I,TP,arch",
                          [("fp8", 4, 2, "tinyllama-1.1b"),
                           ("int8", 2, 2, "tinyllama-1.1b"),
-                          ("fp8", 2, 4, "minicpm3-4b")],
-                         ids=["fp8-4x2", "int8-2x2", "fp8-minicpm3-2x4"])
+                          ("fp8", 2, 4, "minicpm3-4b"),
+                          ("fp8", 2, 4, MOE)],
+                         ids=["fp8-4x2", "int8-2x2", "fp8-minicpm3-2x4",
+                              "fp8-phi3.5-moe-2x4"])
 def test_dcp_quantized_step_matches_jax(kv_dtype, I, TP, arch, tmp_path):
     """Both steps from the same quantized pools and tables, every step:
 

@@ -107,10 +107,7 @@ def test_unported_paths_raise_not_implemented():
     eng = NanoCPEngine(cfg, params, **kw)
     copies = IterationPlan(instances=[], copies=[(None, None)])
     for call, item in ((lambda: eng.add_audio_request(None, []), "item 12"),
-                       (lambda: eng.drain_instance(0, force=True), "item 13"),
                        (lambda: eng._check_plan(copies), "item 13"),
-                       (lambda: eng.fail_instance(0), "item 13"),
-                       (lambda: eng.join_instance(1), "item 13"),
                        (lambda: eng.fork_request(0, 4), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             call()
