@@ -72,8 +72,31 @@ Phases, each printing one JSON line:
                ``online_compiles`` flat after the join; a second cell where
                escalation recruits the joiner and a prewarmed graph
                replays), and a forced drain (fail semantics, a degraded
-               greedy prefix).  No frame leaks.  The TinyLlama weights are
-               then freed.
+               greedy prefix).  No frame leaks.
+  8c. serve  — TinyLlama, graphs on, pipelined: six requests sharing a
+               1024-token prefix (staggered arrivals) with the prefix
+               cache on and off, twice each way (equal greedy tokens; the
+               cache hits and scatters fewer tokens; prefill ms per
+               request, the forward covering the whole prompt either way);
+               a fork mid-decode with a forced divergence token (both
+               lineages greedy); pools of 12 frames at (2, 2) where spill
+               relief evicts cache frames before any escalation; a crash
+               of the instance holding the shared frames (both owners
+               re-prefill); the reference's SLO cells shed, reject,
+               preempt and parity on the virtual model clock
+               (``slo.run_engine_clocked``: arrivals and deadlines in
+               modeled iterations of the port's latency model, whose
+               seconds are modeled, not the card's; one typed outcome per
+               request, dropped requests token-free, parity with the
+               simulator); and two prefill cells at (6, 1) streaming the
+               main path's prompts in 256-token chunks, with and without
+               a crash of the streaming cell, beside the colocated engine
+               (equal tokens; no prefill cell in a decode binding), whose
+               eager run gives the paged kernel's call at TP 1 (G 8) to
+               check and time.  Every cell: no frame leaked, no pool
+               moved, each bucket's graph captured once and replayed
+               under its in-place audit.  The TinyLlama weights are then
+               freed.  (MiniCPM3-4B's prefill-cell cell runs in phase 9.)
   9. mla     — full-width MiniCPM3-4B (62 layers, random float32 weights,
                seed 0) through the engine: the main path's traffic at
                (I=4, TP=2) pipelined and not, at (2, 4) pipelined; fp8 and
@@ -84,8 +107,10 @@ Phases, each printing one JSON line:
                at (4, 2), and the paged kernel re-checked and re-timed on
                the largest call the float32 and fp8 runs made (f32 and
                bf16 q), its bound counting the latent row once (v is the
-               view k[..., :256] of the same bytes).  Its weights are then
-               freed.
+               view k[..., :256] of the same bytes); the serve phase's
+               MiniCPM3 cell: two prefill cells at (8, 1) over two nodes
+               of 4, 32-token chunks, equal to the colocated engine and
+               greedy.  Its weights are then freed.
  10. moe     — full-width Phi-3.5-MoE (8 of 32 layers, 16 experts top-2 of
                expert d_ff 6400, random float32 weights, seed 0, capacity
                factor 8.0: no token dropped) through the engine: the main
@@ -161,12 +186,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import moe_parallel  # noqa: E402
 from repro_torch.core.bucketing import CPBuckets, ShapeBuckets  # noqa: E402
-from repro_torch.core.scheduler import DualBalancedScheduler  # noqa: E402
+from repro_torch.core.scheduler import (AdmissionController,  # noqa: E402
+                                        DualBalancedScheduler, _mk_plan)
 from repro_torch.kernels import build, quant, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.models import moe, transformer  # noqa: E402
+from repro_torch.serving import slo  # noqa: E402
 from repro_torch.serving.engine import NanoCPEngine  # noqa: E402
+from repro_torch.serving.simulator import ClusterSimulator  # noqa: E402
+from repro_torch.serving.workload import TraceRequest, Workload  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, and the peak
 # operation rate for the inputs' type (f32 outside the tensor cores, bf16
@@ -696,13 +725,14 @@ def run_edge_checks(gen) -> None:
 # phase 3: engine
 # --------------------------------------------------------------------------- #
 def teacher_forced_check(cfg, params, prompts, results, tag,
-                         new_tokens: int | None = NEW_TOKENS) -> int:
+                         new_tokens: int | None = NEW_TOKENS,
+                         start: int = 0) -> int:
     """Every transcript must equal the port's greedy forward: one forward
     per request over prompt + transcript, argmax at every generated
-    position.  A divergence is tolerated only where the reference's top-2
-    logit gap is below GAP_TOL; it is printed with both values.  With
-    ``new_tokens`` None a transcript of any nonzero length must be a
-    prefix of greedy (an OOM finish)."""
+    position from ``start`` on.  A divergence is tolerated only where the
+    reference's top-2 logit gap is below GAP_TOL; it is printed with both
+    values.  With ``new_tokens`` None a transcript of any nonzero length
+    must be a prefix of greedy (an OOM finish)."""
     ties = 0
     for rid, prompt in enumerate(prompts):
         toks = results[rid].tokens
@@ -717,7 +747,7 @@ def teacher_forced_check(cfg, params, prompts, results, tag,
             fail(f"{tag}: non-finite reference logits for request {rid}")
         ref_tok = lg.argmax(-1).tolist()
         for t, (got, want) in enumerate(zip(toks, ref_tok)):
-            if got == want:
+            if t < start or got == want:
                 continue
             top2 = lg[t].topk(2).values
             gap = float(top2[0] - top2[1])
@@ -918,6 +948,19 @@ def make_engine(cfg, params, prompts, pipeline: bool, *,
     return eng
 
 
+def zero_launches() -> None:
+    """Set every kernel's launch count to 0 (after the queued work)."""
+    torch.cuda.synchronize()
+    pa.LAUNCHES = 0
+    pa.LAUNCHES_BY_PAGE.clear()
+    fa.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {"paged_decode": pa.LAUNCHES, "flash_fwd": fa.LAUNCHES}
+
+
 def free_memory() -> None:
     """Collect dropped engines and return their device memory: call after
     ``eng.close()`` (which frees the graphs and their pool) and ``del``."""
@@ -969,10 +1012,7 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
              "from the pipelined recorder run")
     eng = make_engine(cfg, params, prompts, pipeline, new_tokens=new_tokens,
                       cuda_graphs=cuda_graphs, **kw)
-    torch.cuda.synchronize()
-    pa.LAUNCHES = 0
-    pa.LAUNCHES_BY_PAGE.clear()
-    fa.LAUNCHES = 0
+    zero_launches()
     cap = LargestPagedCall() if quantized and recorder else None
     step_ms, prefill_us, steady, host_us, rounds = [], 0.0, [], {}, 0
     moe_steps = []
@@ -1455,6 +1495,7 @@ def main() -> None:
     del twin, dense
     run_spill_phase(cfg, params, prompts)
     run_chaos_phase(cfg, params)
+    serve = run_serve_phase(cfg, params, ksum)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1491,6 +1532,7 @@ def main() -> None:
         run_engine(mcfg, mparams, eprompt, True, kv_dtype=kv_dtype,
                    tag=f"mla {'f32' if kv_dtype == 'bf16' else kv_dtype} "
                        "escalate", new_tokens=24, escalate=True, **escalation)
+    run_serve_mla(mcfg, mparams)
     margs, msc = mruns["captured"]
     profile_prefill(mcfg, mparams, mprompts[int(np.argmax(PROMPT_LENS))])
     for a in (margs, as_bf16_call(margs)):
@@ -1553,7 +1595,9 @@ def main() -> None:
             ("paged_decode_ds_int8", src, replaces,
              ds["int8"]["launches"]["paged_decode"]),
             ("flash_fwd_ds", fsrc, freplaces,
-             ds["pipelined"]["launches"]["flash_fwd"])):
+             ds["pipelined"]["launches"]["flash_fwd"]),
+            ("paged_decode_tp1", src, replaces,
+             serve["launches"]["paged_decode"])):
         rows = ksum[name]
         # the timing at the main path's shapes: the captured paged call, and
         # the 2000-token prompt's prefill attention; bf16 q beside it
@@ -1790,6 +1834,656 @@ def run_chaos_phase(cfg, params) -> None:
     for row in rows:
         emit(row)
     emit({"phase": "chaos", "ok": True, "cells": len(rows)})
+
+
+# --------------------------------------------------------------------------- #
+# phase 8c: serve (SLO admission, prefix cache, prefill cells)
+# --------------------------------------------------------------------------- #
+SERVE_PREFIX = 1024                            # the shared prefix: 64 pages
+SERVE_SUFFIXES = (40, 300, 120, 64, 200, 88)   # each request's own suffix
+# TinyLlama's prefill-cell chunk: the 2000-token prompt streams in 8 chunks,
+# each a causal forward over [0, end), so the recompute stays at 4.5x the
+# prompt's tokens; MiniCPM3's cell keeps the reference's 32-token chunk
+DISAGG_CHUNK, MLA_DISAGG_CHUNK = 256, 32
+MLA_DISAGG_LENS = (24, 90, 180)                # the reference's MLA cell
+
+
+def serve_engine(cfg, params, **kw) -> NanoCPEngine:
+    """The serve phase's engine: (I=4, TP=2) unless ``kw`` says otherwise,
+    graphs on, pipelined; every pool's address recorded."""
+    args = dict(num_instances=4, instances_per_node=4,
+                kv_capacity_tokens=4096, page_size=16, tp=2,
+                buckets=CPBuckets(edges=(100, 256), degrees=(1, 2, 3)))
+    args.update(kw)
+    eng = NanoCPEngine(cfg, params, device=DEV, **args)
+    eng.pool_ptrs = {k: v.data_ptr() for k, v in eng.state.items()}
+    return eng
+
+
+def count_scatters(eng) -> dict:
+    """Count the KV tokens every in-place scatter of ``eng`` writes
+    (prefill, chunk stream, re-prefill)."""
+    n = {"tokens": 0}
+    inner = eng._scatter.scatter_kv
+
+    def scatter_kv(state, k, v, coords):
+        n["tokens"] += int(coords.shape[1])
+        return inner(state, k, v, coords)
+    eng._scatter.scatter_kv = scatter_kv
+    return n
+
+
+def serve_drain(eng, on_step=None, max_steps: int = 400) -> dict:
+    """Step ``eng`` until nothing is pending; returns the host-clock sums
+    of its prefill and handoff timings."""
+    t = {"prefill_us": 0.0, "handoff_us": 0.0, "steps": 0}
+    for step in range(max_steps):
+        if not eng.pending:
+            return t
+        if on_step is not None:
+            on_step(step)
+        eng.step()
+        t["steps"] += 1
+        for k in ("prefill_us", "handoff_us"):
+            t[k] += eng.timings.get(k, 0.0)
+    fail(f"serve: run exceeded {max_steps} steps")
+
+
+def serve_audit(eng, tag: str) -> dict:
+    """The end of a serve cell: drained, no frame leaked or aliased, no
+    pool moved (every write outside the step landed in place), every
+    bucket's graph captured once, at its first step, and replayed under
+    its in-place audit (a moved pointer raises at the replay)."""
+    cl = eng.cluster
+    if cl.active or cl.waiting or cl.prefilling or eng._inflight is not None:
+        fail(f"{tag}: the engine did not drain")
+    fpi = cl.page_table.frames_per_instance
+    for s, (free, held) in cl.page_table.frame_audit().items():
+        ok = (held == 0 and free in (0, fpi) if s in cl.dead_instances
+              else free + held == fpi)
+        if not ok:
+            fail(f"{tag}: instance {s} frames free {free} held {held}")
+    if {k: v.data_ptr() for k, v in eng.state.items()} != eng.pool_ptrs:
+        fail(f"{tag}: a pool moved")
+    st = eng.aot.stats
+    if (st.donation_copies or st.captured != eng.aot.num_graphs
+            or st.online_compiles != eng.aot.num_graphs or st.hits < 1):
+        fail(f"{tag}: graphs {eng.aot.num_graphs}, {st.as_dict()}")
+    return {"graphs": eng.aot.num_graphs, "replays": st.hits,
+            "frames_leaked": 0}
+
+
+def serve_greedy(cfg, params, eng, prompts: dict, tag: str,
+                 new_tokens: dict) -> int:
+    """Transcripts of the requests in ``prompts`` ({rid: prompt}) full
+    length (``new_tokens`` {rid: n}) and greedy, teacher-forced."""
+    for rid, n in new_tokens.items():
+        if len(eng.results[rid].tokens) != n:
+            fail(f"{tag}: request {rid} emitted "
+                 f"{len(eng.results[rid].tokens)} of {n} tokens")
+    rids = sorted(prompts)
+    return teacher_forced_check(cfg, params, [prompts[r] for r in rids],
+                                {i: eng.results[r] for i, r in
+                                 enumerate(rids)}, tag, None)
+
+
+def serve_prefix_prompts(cfg, seed: int, suffixes) -> list:
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab_size, (SERVE_PREFIX,))
+    return [np.concatenate([shared, rng.integers(0, cfg.vocab_size, (n,))])
+            for n in suffixes]
+
+
+def serve_prefix_run(cfg, params, prompts, cache: bool) -> dict:
+    """The six sharers with staggered arrivals: request 0 prefills (and
+    fills the cache) at the first step, then one request arrives before
+    each step."""
+    eng = serve_engine(cfg, params, prefix_cache=cache)
+    scattered = count_scatters(eng)
+
+    def arrive(step):            # one more sharer before each later step
+        if 0 < step < len(prompts):
+            eng.add_request(prompts[step], NEW_TOKENS)
+    zero_launches()
+    eng.add_request(prompts[0], NEW_TOKENS)
+    t = serve_drain(eng, on_step=arrive)
+    launches = read_launches()
+    tag = f"serve prefix cache {'on' if cache else 'off'}"
+    if len(eng.results) != len(prompts):
+        fail(f"{tag}: {len(eng.results)} of {len(prompts)} requests arrived")
+    hp = eng.hot_path_stats
+    want = {"paged_decode": hp["steps"] * cfg.num_layers,
+            "flash_fwd": len(prompts) * cfg.num_layers}
+    if launches != want:
+        fail(f"{tag}: launches {launches}, expected {want}")
+    row = {"phase": "serve", "cell": tag, "model": cfg.name,
+           "prompt_lens": [len(p) for p in prompts],
+           "prefix_hit_tokens": hp["prefix_hit_tokens"],
+           "prefix_inserts": hp["prefix_inserts"],
+           "scattered_tokens": scattered["tokens"],
+           "prefill_ms_per_request": t["prefill_us"] / 1e3 / len(prompts),
+           "steps": t["steps"], "launches": launches,
+           "ties_tolerated": serve_greedy(
+               cfg, params, eng, dict(enumerate(prompts)), tag,
+               {r: NEW_TOKENS for r in range(len(prompts))}),
+           **serve_audit(eng, tag)}
+    if cache:
+        row["trie"] = eng.prefix_trie.stats()
+    row["tokens"] = {r: g.tokens for r, g in eng.results.items()}
+    eng.close()
+    del eng
+    free_memory()
+    return row
+
+
+def serve_fork(cfg, params) -> dict:
+    """Fork request 0 mid-decode with a forced divergence token: the
+    child shares the parent's full frames and clones the partial tail;
+    both lineages are greedy over their own processed sequence."""
+    tag = "serve fork"
+    prompt = serve_prefix_prompts(cfg, 2, (12,))[0]    # a partial tail page
+    eng = serve_engine(cfg, params, prefix_cache=True)
+    eng.add_request(prompt, NEW_TOKENS)
+    for _ in range(5):
+        eng.step()
+    if eng._inflight is not None:
+        eng._harvest(eng._now())
+    parent = eng.results[0].tokens
+    k = len(parent)
+    if not 3 <= k < NEW_TOKENS:
+        fail(f"{tag}: the fork landed at token {k}")
+    forced = (parent[-1] + 1) % cfg.vocab_size
+    child = eng.fork_request(0, NEW_TOKENS, next_token=forced)
+    serve_drain(eng)
+    hp = eng.hot_path_stats
+    toks, parent = eng.results[child].tokens, eng.results[0].tokens
+    if (hp["forks"] != 1 or hp["copy_tokens"] <= 0
+            or eng.cluster.page_table.cow_splits < 1):
+        fail(f"{tag}: {hp}, cow splits {eng.cluster.page_table.cow_splits}")
+    if toks[:k - 1] != parent[:k - 1] or toks[k - 1] != forced:
+        fail(f"{tag}: child {toks} does not extend parent {parent[:k]}")
+    ties = serve_greedy(cfg, params, eng, {0: prompt}, tag, {0: NEW_TOKENS})
+    if len(toks) != NEW_TOKENS:
+        fail(f"{tag}: the child emitted {len(toks)} tokens")
+    ties += teacher_forced_check(cfg, params, [prompt], {0: eng.results[child]},
+                                 f"{tag} child", None, start=k)
+    row = {"phase": "serve", "cell": tag, "forked_at": k,
+           "copy_tokens": hp["copy_tokens"],
+           "cow_splits": eng.cluster.page_table.cow_splits,
+           "ties_tolerated": ties, **serve_audit(eng, tag)}
+    eng.close()
+    del eng
+    free_memory()
+    return row
+
+
+def serve_evict(cfg, params) -> dict:
+    """Pools of 12 frames per instance at (2, 2): two short sharers finish
+    and leave cache-held frames; two requests then grow by decode until
+    they spill, and the spill relief evicts the cache's frames before any
+    escalation."""
+    tag = "serve evict"
+    rng = np.random.default_rng(3)
+    V = cfg.vocab_size
+    shared = rng.integers(0, V, (32,))
+    prompts = [np.concatenate([shared, rng.integers(0, V, (8,))]),
+               np.concatenate([shared, rng.integers(0, V, (4,))]),
+               rng.integers(0, V, (90,)), rng.integers(0, V, (90,))]
+    news = [2, 2, 96, 96]
+    eng = serve_engine(cfg, params, prefix_cache=True, num_instances=2,
+                       instances_per_node=2, kv_capacity_tokens=192,
+                       buckets=CPBuckets(edges=(64, 160), degrees=(1, 2, 2)),
+                       shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4),
+                                                  s_buckets=(0, 1, 2, 4),
+                                                  window=2),
+                       max_slots_per_instance=4)
+    eng.add_request(prompts[0], news[0])
+    eng.step()
+    eng.step()
+    eng.add_request(prompts[1], news[1])
+    serve_drain(eng)
+    held = eng.prefix_trie.cached_frames()
+    if eng.hot_path_stats["prefix_hit_tokens"] != 32 or held <= 0:
+        fail(f"{tag}: hits {eng.hot_path_stats['prefix_hit_tokens']}, "
+             f"cached frames {held}")
+    eng.add_request(prompts[2], news[2])
+    eng.add_request(prompts[3], news[3])
+    first = {}
+
+    def watch(step):
+        if eng.prefix_trie.evicted_frames and "evict" not in first:
+            first["evict"] = step
+        if eng.hot_path_stats["spill_escalations"] and "spill" not in first:
+            first["spill"] = step
+    serve_drain(eng, on_step=watch)
+    watch(10**9)
+    hp = eng.hot_path_stats
+    if ("evict" not in first or first["evict"] > first.get("spill", 10**9)
+            or hp["oom_finishes"]):
+        fail(f"{tag}: first eviction / spill escalation at {first}, {hp}")
+    row = {"phase": "serve", "cell": tag, "cached_frames": held,
+           "evicted_frames": eng.prefix_trie.evicted_frames,
+           "first_eviction_step": first["evict"],
+           "first_spill_escalation_step": first.get("spill"),
+           "spill_escalations": hp["spill_escalations"],
+           "ties_tolerated": serve_greedy(cfg, params, eng,
+                                          dict(enumerate(prompts)), tag,
+                                          dict(enumerate(news))),
+           **serve_audit(eng, tag)}
+    eng.close()
+    del eng
+    free_memory()
+    return row
+
+
+def serve_prefix_chaos(cfg, params) -> dict:
+    """Two sharers of the 1024-token prefix; the instance holding the
+    lowest replica of the shared frames is killed mid-decode (between a
+    dispatch and its harvest): the trie forgets its replicas and both
+    owners re-prefill their lost ranges and finish greedy."""
+    tag = "serve prefix-chaos"
+    prompts = serve_prefix_prompts(cfg, 4, (40, 120))
+    eng = serve_engine(cfg, params, prefix_cache=True)
+    eng.add_request(prompts[0], NEW_TOKENS)
+    eng.step()
+    eng.step()
+    eng.add_request(prompts[1], NEW_TOKENS)
+    for _ in range(16):
+        if not (eng.cluster.waiting
+                or eng.hot_path_stats["prefix_hit_tokens"] == 0):
+            break
+        eng.step()
+    trie = eng.prefix_trie
+    if eng.hot_path_stats["prefix_hit_tokens"] <= 0:
+        fail(f"{tag}: the second request never hit the cache")
+    victim = min(i for node in trie.nodes.values() for i in node.replicas)
+    eng.step()
+    eng.step()
+    if eng._inflight is None:
+        fail(f"{tag}: no step in flight")
+    eng.fail_instance(victim)
+    if any(victim in node.replicas for node in trie.nodes.values()):
+        fail(f"{tag}: the trie kept replicas of the dead instance")
+    serve_drain(eng)
+    hp = eng.hot_path_stats
+    if (hp["reprefill_tokens"] <= 0 or hp["degraded_finishes"]
+            or not all(eng.results[r].recovered for r in (0, 1))):
+        fail(f"{tag}: {hp}, recovered "
+             f"{[eng.results[r].recovered for r in (0, 1)]}")
+    row = {"phase": "serve", "cell": tag, "victim": victim,
+           "prefix_hit_tokens": hp["prefix_hit_tokens"],
+           "reprefill_tokens": hp["reprefill_tokens"],
+           "recovered_tokens": hp["recovered_tokens"],
+           "ties_tolerated": serve_greedy(cfg, params, eng,
+                                          dict(enumerate(prompts)), tag,
+                                          {0: NEW_TOKENS, 1: NEW_TOKENS}),
+           **serve_audit(eng, tag)}
+    eng.close()
+    del eng
+    free_memory()
+    return row
+
+
+# --- SLO admission on the virtual model clock ------------------------------ #
+def slo_scheduler(buckets, admission, **kw) -> DualBalancedScheduler:
+    return DualBalancedScheduler(buckets=buckets, max_batch_per_instance=8,
+                                 admission=admission, **kw)
+
+
+def modeled_iteration_s(cfg, cap: int, buckets) -> float:
+    """The latency model's time (H100 datasheet constants) of one decode
+    iteration with nothing resident on the cells' (2, 2) geometry: the
+    unit of the SLO cells' arrivals and deadlines."""
+    sim = ClusterSimulator(cfg, slo_scheduler(buckets, None),
+                           num_instances=2, instances_per_node=2,
+                           kv_capacity_tokens=cap, page_size=16)
+    return sim._iteration_time(_mk_plan(sim.cluster))[0]
+
+
+def slo_cell(cfg, params, mode: str, T: float) -> dict:
+    """One of the reference's SLO cells (``engine_slo.py``) on the clocked
+    engine (``slo.run_engine_clocked``): arrivals and deadlines are
+    multiples of ``T``, the modeled iteration time; the clock advances by
+    the latency model's price of each iteration the engine ran.  Each
+    submitted request has exactly one typed outcome, a dropped one has no
+    tokens, and every request that ran is greedy."""
+    tag = f"serve slo {mode}"
+    far = 1e9
+    kw, relax_log = {}, []
+    cap, slots = 256, 4
+    buckets = CPBuckets(edges=(100_000,), degrees=(1, 2))
+    if mode == "shed":
+        adm = AdmissionController(ttft_slo=20 * T, ttft_slo_long=20 * T,
+                                  long_threshold=100_000, preempt=False)
+        trace = [(0.0, 200, 40), (0.0, 200, 40), (2 * T, 112, 4)]
+    elif mode == "reject":
+        adm = AdmissionController(ttft_slo=far, long_threshold=100_000,
+                                  max_queue=1, preempt=False)
+        trace = [(0.0, 200, 24), (0.0, 200, 24), (T, 112, 4),
+                 (2 * T, 112, 4)]
+    elif mode == "preempt":
+        adm = AdmissionController(ttft_slo=far, long_threshold=100_000,
+                                  preempt=True)
+        kw = dict(kv_reserve=0, escalate_headroom=16, relax_guard=0,
+                  relax_cooldown=64)
+        trace = [(0.0, 128, 100), (0.0, 220, 45), (30 * T, 112, 4)]
+    else:
+        raise ValueError(mode)
+    sched = slo_scheduler(buckets, adm, **kw)
+    if mode == "preempt":
+        orig_relax = sched.relax
+
+        def relax(cluster, force=False, exclude=frozenset()):
+            recs = orig_relax(cluster, force=force, exclude=exclude)
+            for rec in recs:
+                length = (cluster.active[rec.rid].length
+                          if rec.rid in cluster.active else None)
+                relax_log.append((force, length, rec))
+            return recs
+        sched.relax = relax
+    eng = serve_engine(cfg, params, num_instances=2, instances_per_node=2,
+                       kv_capacity_tokens=cap, buckets=buckets,
+                       shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4, 8),
+                                                  s_buckets=(0, 1, 2, 4),
+                                                  window=2),
+                       scheduler=sched, max_slots_per_instance=slots)
+    wl = Workload(f"slo_{mode}", [TraceRequest(rid, t, n, m)
+                                  for rid, (t, n, m) in enumerate(trace)])
+    shadow = ClusterSimulator(cfg, slo_scheduler(buckets, None),
+                              num_instances=2, instances_per_node=2,
+                              kv_capacity_tokens=cap, page_size=16)
+    zero_launches()
+    fin, sub, now = slo.run_engine_clocked(eng, wl, shadow=shadow,
+                                           max_iters=1000)
+    launches = read_launches()
+    oc = slo_outcomes(eng, fin, sub, tag)
+    hp = eng.hot_path_stats
+    want = {"shed": {"finished": 2, "shed": 1},
+            "reject": {"finished": 3, "rejected": 1},
+            "preempt": {"finished": 3}}[mode]
+    if {k: v for k, v in oc.items() if v} != want:
+        fail(f"{tag}: outcomes {oc}, expected {want}")
+    if mode == "shed":
+        late = {r.rid: r for r in fin}[2]
+        if not late.finish_time > adm.deadline(late):
+            fail(f"{tag}: shed before its deadline")
+    if mode == "preempt":
+        forced = [(ln, rec) for f, ln, rec in relax_log if f]
+        if hp["preemptions"] < 1 or not forced:
+            fail(f"{tag}: relax-before-reject never fired: {hp}")
+        for length, rec in forced:
+            if (not set(rec.new_binding) <= set(rec.old_binding)
+                    or (length is not None and len(rec.new_binding)
+                        < buckets.cp_degree(length))):
+                fail(f"{tag}: preemption cut below the bucket degree: {rec}")
+    if launches["paged_decode"] != hp["steps"] * cfg.num_layers:
+        fail(f"{tag}: launches {launches}, {hp['steps']} steps")
+    ran = {r.rid: trace[r.rid][1] for r in fin if r.status == "finished"}
+    prompts = {rid: [1 + (rid * 31 + k) % 97 for k in range(trace[rid][1])]
+               for rid in ran}
+    row = {"phase": "serve", "cell": tag, "outcomes": oc,
+           "modeled_iteration_s": T, "modeled_end_s": now,
+           "clock": "latency model, H100 datasheet constants (not the card)",
+           "shed": hp["shed"], "rejected": hp["rejected"],
+           "preemptions": hp["preemptions"], "steps": hp["steps"],
+           "launches": launches,
+           "ties_tolerated": serve_greedy(
+               cfg, params, eng, prompts, tag,
+               {rid: trace[rid][2] for rid in ran}),
+           **serve_audit(eng, tag)}
+    eng.close()
+    del eng
+    free_memory()
+    return row
+
+
+def slo_outcomes(eng, fin, submitted: int, tag: str) -> dict:
+    """Exactly one typed outcome per submitted request; a dropped request
+    emitted nothing."""
+    rids = [r.rid for r in fin]
+    if len(rids) != submitted or len(set(rids)) != submitted:
+        fail(f"{tag}: {len(set(rids))} outcomes for {submitted} requests")
+    for r in fin:
+        if r.status not in slo.OUTCOMES or r.finish_time < 0:
+            fail(f"{tag}: request {r.rid} ended {r.status}")
+        if r.status in ("shed", "rejected") and eng.results[r.rid].tokens:
+            fail(f"{tag}: dropped request {r.rid} emitted tokens")
+    return slo.outcome_counts(fin)
+
+
+def slo_parity(cfg, params, T: float) -> dict:
+    """The reference's parity cell: the same trace through the simulator
+    and the clocked engine, both pricing with the port's latency model,
+    give the same typed-outcome histogram (the shorts finish, the two
+    never-placeable long prompts shed)."""
+    tag = "serve slo parity"
+    buckets = CPBuckets(edges=(128,), degrees=(1, 2))
+
+    def sched():
+        adm = AdmissionController(ttft_slo=24 * T, ttft_slo_long=96 * T,
+                                  long_threshold=100, preempt=True)
+        return slo_scheduler(buckets, adm, kv_reserve=16)
+
+    def sim():
+        return ClusterSimulator(cfg, sched(), num_instances=2,
+                                instances_per_node=2, kv_capacity_tokens=192,
+                                page_size=16)
+
+    wl = slo.make_tiny_trace(6, 2, gap=2 * T, short_len=40, long_len=400,
+                             decode=4)
+    sim_fin, sim_sub, _ = slo.run_sim_trace(sim(), wl, horizon=5.0)
+    eng = serve_engine(cfg, params, num_instances=2, instances_per_node=2,
+                       kv_capacity_tokens=192, buckets=buckets,
+                       shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4, 8),
+                                                  s_buckets=(0, 1, 2, 4),
+                                                  window=2),
+                       scheduler=sched(), max_slots_per_instance=8)
+    fin, sub, now = slo.run_engine_clocked(eng, wl, shadow=sim(),
+                                           max_iters=1200)
+    oc, sim_oc = slo_outcomes(eng, fin, sub, tag), slo.outcome_counts(sim_fin)
+    if sim_sub != sub or oc != sim_oc or oc["finished"] != 6 \
+            or oc["shed"] != 2:
+        fail(f"{tag}: simulator {sim_oc} vs engine {oc}")
+    trace = {t.rid: t for t in wl.requests}
+    ran = [r.rid for r in fin if r.status == "finished"]
+    prompts = {rid: [1 + (rid * 31 + k) % 97
+                     for k in range(trace[rid].prompt_len)] for rid in ran}
+    row = {"phase": "serve", "cell": tag, "outcomes": oc,
+           "simulator_outcomes": sim_oc, "modeled_iteration_s": T,
+           "modeled_end_s": now,
+           "clock": "latency model, H100 datasheet constants (not the card)",
+           "ties_tolerated": serve_greedy(
+               cfg, params, eng, prompts, tag,
+               {rid: trace[rid].max_new_tokens for rid in ran}),
+           **serve_audit(eng, tag)}
+    eng.close()
+    del eng
+    free_memory()
+    return row
+
+
+# --- disaggregated prefill cells -------------------------------------------- #
+def serve_disagg(cfg, params, prompts, tag: str, *, I: int, tp: int, w: int,
+                 chunk: int, cells: int, crash: bool = False,
+                 new_tokens: int = NEW_TOKENS, record: bool = False) -> dict:
+    """One engine with ``cells`` prefill cells (0: colocated) on the
+    prompts.  Every decode-time binding is decode-only; with ``crash`` the
+    cell streaming the longest prompt dies once a chunk of it has landed.
+    Host clock per request: from its admission step (staged or prefilled)
+    to the end of its first decode dispatch.  ``record`` runs eagerly and
+    keeps the largest paged call of the first steps."""
+    eng = serve_engine(cfg, params, num_instances=I, instances_per_node=w,
+                       tp=tp, prefill_cells=cells, chunk_tokens=chunk,
+                       cuda_graphs=not record)
+    scattered = count_scatters(eng)
+    for p in prompts:
+        eng.add_request(p, new_tokens)
+    cl = eng.cluster
+    longest = int(np.argmax([len(p) for p in prompts]))
+    seen, first_decode, crashed = {}, {}, {}
+    handoff_us = 0.0
+    cap = LargestPagedCall() if record else None
+    zero_launches()
+    t_run = time.perf_counter()
+    with torch.no_grad():
+        for step in range(400):
+            if not eng.pending:
+                break
+            task = eng._handoff.get(longest)
+            if (crash and not crashed and task is not None
+                    and task.computed >= 1 and not task.done):
+                crashed.update(cell=task.instance,
+                               streamed=task.streamed_tokens,
+                               novel=task.novel_tokens)
+                eng.fail_instance(task.instance)
+            t0 = time.perf_counter()
+            if cap is not None and step < CAPTURE_STEPS:
+                with cap:
+                    eng.step()
+            else:
+                eng.step()
+            handoff_us += eng.timings.get("handoff_us", 0.0)
+            for rid in cl.prefilling:
+                seen.setdefault(rid, t0)
+            new = [rid for rid, *_ in (eng._inflight.slots if eng._inflight
+                                       else ()) if rid not in first_decode]
+            if new:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for rid in new:
+                    first_decode[rid] = (t1 - seen.get(rid, t0)) * 1e3
+            for req in cl.active.values():
+                if any(cl.role_of(s) != "decode" for s in req.kv_binding):
+                    fail(f"{tag}: request {req.rid} decodes on a prefill "
+                         f"cell: {req.kv_binding}")
+    launches = read_launches()
+    run_s = time.perf_counter() - t_run
+    hp = eng.hot_path_stats
+    if crash and (not crashed or eng.results[longest].recovered is not True
+                  or hp["reprefill_tokens"] <= 0):
+        fail(f"{tag}: crash {crashed}, {hp}")
+    if cells and (hp["staged"] < 1 or hp["handoff_tokens"]
+                  < sum(len(p) for p in prompts)):
+        fail(f"{tag}: {hp}")
+    want_flash = ((hp["prefill_chunks"] if cells else len(prompts))
+                  * cfg.num_layers)
+    if (launches["paged_decode"] != hp["steps"] * cfg.num_layers
+            or (not crash and launches["flash_fwd"] != want_flash)):
+        fail(f"{tag}: launches {launches}, {hp['steps']} steps, flash "
+             f"expected {want_flash}")
+    row = {"phase": "serve", "cell": tag, "model": cfg.name,
+           "mesh": [I, tp], "node_width": w, "prefill_cells": cells,
+           "chunk_tokens": chunk if cells else None,
+           "prompt_lens": [len(p) for p in prompts],
+           "staged": hp["staged"], "prefill_chunks": hp["prefill_chunks"],
+           "handoff_tokens": hp["handoff_tokens"],
+           "handoff_ms": handoff_us / 1e3,
+           "scattered_tokens": scattered["tokens"],
+           "prefill_to_first_decode_ms": [first_decode.get(r) for r in
+                                          range(len(prompts))],
+           "steps": hp["steps"], "run_s": run_s, "launches": launches,
+           "recovered": [eng.results[r].recovered
+                         for r in range(len(prompts))],
+           "ties_tolerated": serve_greedy(
+               cfg, params, eng, dict(enumerate(prompts)), tag,
+               {r: new_tokens for r in range(len(prompts))})}
+    if crash:
+        row.update(crash=crashed, reprefill_tokens=hp["reprefill_tokens"])
+    if record:
+        row["captured"] = cap.args
+    else:
+        row.update(serve_audit(eng, tag))
+    row["tokens"] = {r: g.tokens for r, g in eng.results.items()}
+    eng.close()
+    del eng
+    free_memory()
+    return row
+
+
+def run_serve_phase(cfg, params, ksum: dict) -> dict:
+    """Phase 8c (TinyLlama, graphs on, pipelined): the prefix cache on and
+    off, fork, eviction under spill, a crash of the instance holding the
+    shared frames, the SLO cells on the virtual model clock, and the
+    prefill cells at (6, 1) (with a crash of the streaming cell) beside
+    the colocated engine, whose eager run gives the paged kernel's call at
+    TP 1 (G 8 over 4 kv heads per device) to check and time.  Returns the
+    prefill cells' (6, 1) run's row."""
+    card, t0 = nvidia_smi(), time.perf_counter()
+    rows = []
+    with torch.no_grad():
+        # on, off, on, off: the first prefill of these lengths pays
+        # one-time costs, so each way runs twice and both are reported
+        prompts = serve_prefix_prompts(cfg, 1, SERVE_SUFFIXES)
+        runs = [serve_prefix_run(cfg, params, prompts, cache)
+                for cache in (True, False, True, False)]
+        if any(r.pop("tokens") != runs[0]["tokens"] for r in runs[1:]):
+            fail("serve prefix: the cache changed the tokens")
+        runs[0].pop("tokens")
+        for i, r in enumerate(runs):
+            r["round"] = 1 + i // 2
+        on, off = runs[2], runs[3]
+        if (on["prefix_hit_tokens"] <= 0 or off["prefix_hit_tokens"]
+                or off["scattered_tokens"] != sum(map(len, prompts))
+                or on["scattered_tokens"] >= off["scattered_tokens"]):
+            fail(f"serve prefix: on {on}, off {off}")
+        rows += runs + [serve_fork(cfg, params), serve_evict(cfg, params),
+                        serve_prefix_chaos(cfg, params)]
+        T = modeled_iteration_s(cfg, 256, CPBuckets(edges=(100_000,),
+                                                    degrees=(1, 2)))
+        rows += [slo_cell(cfg, params, mode, T)
+                 for mode in ("shed", "reject", "preempt")]
+        rows.append(slo_parity(cfg, params, modeled_iteration_s(
+            cfg, 192, CPBuckets(edges=(128,), degrees=(1, 2)))))
+        rng = np.random.default_rng(0)
+        dprompts = [rng.integers(0, cfg.vocab_size, (L,))
+                    for L in PROMPT_LENS]
+        geo = dict(I=6, tp=1, w=6, chunk=DISAGG_CHUNK)
+        colo = serve_disagg(cfg, params, dprompts, "serve colocated 6x1",
+                            cells=0, record=True, **geo)
+        for tag, crash in (("serve disagg 6x1", False),
+                           ("serve disagg 6x1 crash", True)):
+            row = serve_disagg(cfg, params, dprompts, tag, cells=2,
+                               crash=crash, **geo)
+            if row.pop("tokens") != colo["tokens"]:
+                fail(f"{tag}: tokens differ from the colocated engine's")
+            rows.append(row)
+            if not crash:
+                disagg = row
+        colo.pop("tokens")
+        args = colo.pop("captured")
+        rows.append(colo)
+        for a in (args, as_bf16_call(args)):
+            row = paged_row(a, a[0].dtype, "tp1 main path",
+                            name="paged_decode_tp1")
+            emit(row)
+            ksum.setdefault("paged_decode_tp1", []).append(row)
+    for row in rows:
+        emit({**row, "card": card})
+    emit({"phase": "serve", "ok": True, "cells": len(rows), "card": card,
+          "seconds": time.perf_counter() - t0})
+    return disagg
+
+
+def run_serve_mla(cfg, params) -> None:
+    """The serve phase's MiniCPM3-4B cell (the reference's MLA disagg
+    cell): (8, 1) over two nodes of 4, two prefill cells streaming the
+    latent in 32-token chunks, beside the colocated engine; both greedy
+    and equal."""
+    card, t0 = nvidia_smi(), time.perf_counter()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (L,)) for L in MLA_DISAGG_LENS]
+    geo = dict(I=8, tp=1, w=4, chunk=MLA_DISAGG_CHUNK)
+    with torch.no_grad():
+        colo = serve_disagg(cfg, params, prompts, "serve colocated mla 8x1",
+                            cells=0, **geo)
+        dis = serve_disagg(cfg, params, prompts, "serve disagg mla 8x1",
+                           cells=2, **geo)
+    if dis.pop("tokens") != colo.pop("tokens"):
+        fail("serve disagg mla: tokens differ from the colocated engine's")
+    for row in (colo, dis):
+        emit({**row, "card": card})
+    emit({"phase": "serve", "ok": True, "model": cfg.name, "card": card,
+          "seconds": time.perf_counter() - t0})
 
 
 def run_moe_phase(ksum: dict) -> dict:

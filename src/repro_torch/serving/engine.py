@@ -61,14 +61,25 @@ degraded when the cluster lacks headroom), ``join_instance`` (the rejoined
 instance's wider-ring buckets are captured off the hot path) and the
 forced drain (fail semantics for what cannot be evacuated).
 
-Not ported yet, each raising ``NotImplementedError`` where the reference
-would act: SSM and encoder-decoder models (items 11-12); the prefix
-cache and its data-plane copies, admission control and prefill cells
-(item 13).
+Serving features: SLO admission control (``admission=``, an
+``AdmissionController`` set on the scheduler; rejected and shed requests
+finish as typed outcomes, ``GenResult.rejected`` / ``shed``); the global
+copy-on-write prefix cache (``prefix_cache=True``: a hit attaches cached
+frames and scatters only the novel suffix, though the prefill forward
+still covers the whole prompt; ``fork_request``; shared tails are split
+before any append; spill relief evicts cache replicas first); and
+disaggregated prefill cells (``prefill_cells=``: the tail instances run
+chunked prefill, each chunk a causal forward over ``[0, end)`` whose rows
+``[end - chunk_tokens, end)`` scatter straight into the decode
+destinations).  Every such write lands in place in the captured pools.
+
+Not ported yet, raising ``NotImplementedError`` where the reference would
+act: SSM and encoder-decoder models (items 11-12).
 """
 from __future__ import annotations
 
 import time
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -80,7 +91,9 @@ from ..core import dcp, migrate, routing
 from ..core.aot import AOTGraphEngine
 from ..core.bucketing import CPBuckets, DEFAULT_BUCKETS, ShapeBuckets
 from ..core.comm import node_local_rounds, ring_round
+from ..core.handoff import HandoffTask
 from ..core.page_table import KVSpillError
+from ..core.prefix import PrefixTrie, page_keys
 from ..core.scheduler import BaseScheduler, DualBalancedScheduler
 from ..core.state import ClusterState, Request
 from ..kernels import quant
@@ -100,6 +113,11 @@ class GenResult:
     # from-scratch run); False = degraded finish (no headroom: finished
     # early with the tokens it had, a prefix of a from-scratch run)
     recovered: bool | None = None
+    # admission-control outcomes: the request never ran (no tokens); it
+    # bounced off a full queue (rejected) or its TTFT deadline expired
+    # while queued (shed).  Both are typed finishes, never a silent drop.
+    rejected: bool = False
+    shed: bool = False
 
 
 @dataclass
@@ -136,24 +154,26 @@ class NanoCPEngine:
                  pipeline: bool = True,
                  audit_donation_every_step: bool = False,
                  admission=None, prefix_cache: bool = False,
-                 prefill_cells: int = 0, kv_dtype: str = "bf16",
-                 keep_logits: bool = False, device="cuda",
-                 cuda_graphs: bool | None = None):
+                 prefill_cells: int = 0, chunk_tokens: int | None = None,
+                 kv_dtype: str = "bf16", keep_logits: bool = False,
+                 device="cuda", cuda_graphs: bool | None = None):
         """``params``: prefill params (``models.transformer`` layout) on
         ``device``.  The virtual mesh is ``num_instances`` x ``tp``.  Pools
         are float32, as the reference engine allocates them, or fp8/int8
         codes with per-page scales for ``kv_dtype`` "fp8"/"int8".
         ``cuda_graphs``: replay one CUDA graph per bucket (the default on
         CUDA; asking for it on the CPU raises) or, False, dispatch the
-        step eagerly."""
+        step eagerly.  ``admission``: an ``AdmissionController`` for the
+        scheduler.  ``prefix_cache``: the global CoW prefix cache.
+        ``prefill_cells``: that many tail instances run chunked prefill
+        only, in chunks of ``chunk_tokens`` (a positive page multiple,
+        default four pages)."""
         transformer.check_supported(cfg)
         quant.check_kv_dtype(kv_dtype)
-        if admission is not None:
-            raise _not_ported("SLO admission control", 13)
-        if prefix_cache:
-            raise _not_ported("the prefix cache", 13)
-        if prefill_cells:
-            raise _not_ported("disaggregated prefill cells", 13)
+        self.chunk_tokens = chunk_tokens or 4 * page_size
+        if self.chunk_tokens <= 0 or self.chunk_tokens % page_size:
+            raise ValueError(f"chunk_tokens must be a positive page multiple "
+                             f"(got {self.chunk_tokens}, page {page_size})")
         self.device = resolve_device(device)
         if cuda_graphs is None:
             cuda_graphs = self.device.type == "cuda"
@@ -170,14 +190,26 @@ class NanoCPEngine:
         self.cluster = ClusterState(num_instances=num_instances,
                                     instances_per_node=instances_per_node,
                                     kv_capacity_tokens=kv_capacity_tokens,
-                                    page_size=page_size, kv_stripes=ps)
+                                    page_size=page_size, kv_stripes=ps,
+                                    prefill_cells=prefill_cells)
         self.scheduler = scheduler or DualBalancedScheduler(
             buckets=buckets, allow_rebalance=True,
             max_batch_per_instance=max_slots_per_instance, has_kv=True,
             # one decode page of growth headroom on every MoE binding at
             # admission so the first appended tokens never spill
             kv_reserve=page_size, allow_escalation=True)
-        self.scheduler.prefix_cache = None
+        if admission is not None:
+            self.scheduler.admission = admission
+        self.prefix_trie = PrefixTrie(page_size) if prefix_cache else None
+        self.scheduler.prefix_cache = self.prefix_trie
+        # prefill cells: rid -> HandoffTask of a request parked in
+        # cluster.prefilling; per-cell FIFO of rids owed chunk forwards; the
+        # first token (device scalar) kept until its handoff completes
+        self._handoff: dict = {}
+        self._cell_queue: dict = {}
+        self._first_tok: dict = {}
+        self._cp_buckets = (getattr(self.scheduler, "buckets", None)
+                            or CPBuckets(edges=(), degrees=(1,)))
         # the data plane's rotation window is the CLUSTER ring
         ring = self.cluster.window
         self.shape_buckets = shape_buckets or ShapeBuckets(window=ring)
@@ -229,7 +261,11 @@ class NanoCPEngine:
             "relax_tokens": 0, "reshard_tokens": 0, "spill_escalations": 0,
             "oom_finishes": 0, "drains": 0, "compacts": 0, "failures": 0,
             "recovered_tokens": 0, "reprefill_tokens": 0,
-            "degraded_finishes": 0, "joins": 0}
+            "degraded_finishes": 0, "joins": 0,
+            "rejected": 0, "shed": 0, "preemptions": 0,
+            "prefix_hit_tokens": 0, "prefix_inserts": 0, "copy_tokens": 0,
+            "forks": 0, "staged": 0, "prefill_chunks": 0,
+            "handoff_tokens": 0}
 
     # ------------------------------------------------------------------ #
     @staticmethod
@@ -256,18 +292,16 @@ class NanoCPEngine:
         now = self._now() if now is None else now
         rid = len(self._prompts)
         self._prompts[rid] = list(map(int, prompt_tokens))
+        keys = (page_keys(self._prompts[rid], self._dims0.page)
+                if self.prefix_trie is not None else ())
         self.cluster.enqueue(Request(rid=rid, prompt_len=len(prompt_tokens),
                                      max_new_tokens=max_new_tokens,
-                                     arrival=now), now)
+                                     arrival=now, prefix_keys=keys), now)
         self.results[rid] = GenResult(rid, self._prompts[rid])
         return rid
 
-    # -- reference entry points outside the main path ------------------- #
     def add_audio_request(self, *args, **kwargs):
         raise _not_ported("encoder-decoder (whisper) serving", 12)
-
-    def fork_request(self, parent_rid: int, max_new_tokens: int, **kwargs):
-        raise _not_ported("request fork (prefix-cache CoW)", 13)
 
     # ------------------------------------------------------------------ #
     def _build_step(self, key):
@@ -302,38 +336,81 @@ class NanoCPEngine:
         self.aot.clear()
 
     # ------------------------------------------------------------------ #
+    def _pool_rows(self, caches: list, sel) -> tuple:
+        """A prefill forward's KV at positions ``sel`` (a slice or an index
+        tensor) in the scatter's layout: k and v as [nb, na, T, khs, kg*hd]
+        (the Hkv heads in khs groups of kg), or MLA's latent as
+        [nb, na, T, 1, kvr + dr] with v None."""
+        a = torch.stack([c["kv"][0][:, 0] for c in caches], dim=1)[:, :, sel]
+        b = torch.stack([c["kv"][1][:, 0] for c in caches], dim=1)[:, :, sel]
+        if self.cfg.is_mla:
+            return torch.cat([a, b], dim=-1)[..., None, :], None
+        khs = self._scatter.khs
+        return (a.reshape(*a.shape[:3], khs, -1),
+                b.reshape(*b.shape[:3], khs, -1))
+
+    def _scatter_rows(self, rows: list, coords: list) -> None:
+        """One in-place scatter of every (k, v) of ``rows`` to its [4, T]
+        coordinates."""
+        self._scatter.scatter_kv(
+            self.state, torch.cat([k for k, _ in rows], dim=2),
+            None if rows[0][1] is None
+            else torch.cat([v for _, v in rows], dim=2),
+            np.concatenate(coords, axis=1))
+
     def _prefill_batch(self, reqs: list, now: float) -> list:
         """Prefill admitted requests (flash kernel on CUDA) and scatter their
-        KV into the pools with ONE in-place call.  The first generated token
-        is sampled from the prefill logits; one batched readback serves the
+        KV into the pools with ONE in-place call.  The forward always covers
+        the full prompt; on a prefix-cache hit only the novel suffix is
+        written (the attached pages already hold the same KV, since equal
+        chain keys mean an equal transcript).  The first generated token is
+        sampled from the prefill logits; one batched readback serves the
         whole batch.  Returns the requests finished by a prefill-EOS."""
-        ps, khs = self._scatter.ps, self._scatter.khs
+        ps = self._scatter.ps
         page = self._dims0.page
-        kv_k, kv_v, kv_coords, firsts = [], [], [], []
+        rows, coords, firsts = [], [], []
         for req in reqs:
+            hit = req.prefix_hit_tokens
             toks = torch.as_tensor(self._prompts[req.rid],
                                    device=self.device)[None, :]
             logits, caches = transformer.forward(self.cfg, self.params, toks,
                                                  collect_kv=True,
                                                  device=self.device)
             firsts.append(logits[0, -1].argmax())
-            a = torch.stack([c["kv"][0][:, 0] for c in caches], dim=1)
-            b = torch.stack([c["kv"][1][:, 0] for c in caches], dim=1)
-            if self.cfg.is_mla:
-                # [nb, na, T, 1, kvr + dr]: MLA's single latent "head"
-                kv_k.append(torch.cat([a, b], dim=-1)[..., None, :])
-            else:
-                # [nb, na, T, Hkv, hd] -> khs groups of kg heads (flattened)
-                kv_k.append(a.reshape(*a.shape[:3], khs, -1))
-                kv_v.append(b.reshape(*b.shape[:3], khs, -1))
-            kv_coords.append(migrate.prefill_coords(self.cluster, req.rid,
-                                                    page, ps))
+            rows.append(self._pool_rows(caches, slice(hit, None)))
+            coords.append(self._prompt_coords(req, hit, page, ps))
         eos_done = self._record_first_tokens(
             reqs, torch.stack(firsts).tolist(), now)
-        self._scatter.scatter_kv(self.state, torch.cat(kv_k, dim=2),
-                                 torch.cat(kv_v, dim=2) if kv_v else None,
-                                 np.concatenate(kv_coords, axis=1))
+        self._scatter_rows(rows, coords)
+        self._register_prefixes(reqs)
         return self._finish_prefill_eos(eos_done, now)
+
+    def _prompt_coords(self, req, hit: int, page: int, ps: int) -> np.ndarray:
+        """Scatter coordinates of the prompt tokens the prefill writes: all
+        of them on a cache miss (the contiguous layout of
+        ``migrate.prefill_coords``), only the novel suffix on a hit (the
+        attach breaks that layout, so positions resolve through the page
+        table's range map)."""
+        if hit == 0:
+            return migrate.prefill_coords(self.cluster, req.rid, page, ps)
+        c3 = self.cluster.page_table.position_coords(
+            req.rid, range(hit, req.prompt_len))
+        return np.stack([c3[0], c3[1] % ps, c3[1] // ps,
+                         c3[2]]).astype(np.int32)
+
+    def _register_prefixes(self, reqs: list) -> None:
+        """Register the admitted requests' cacheable prompt pages in the
+        trie, before any prefill-EOS finish frees the pages, so a one-shot
+        request's prefix KV outlives it."""
+        if self.prefix_trie is None:
+            return
+        pt = self.cluster.page_table
+        for req in reqs:
+            if req.prefix_keys:
+                self.hot_path_stats["prefix_inserts"] += \
+                    self.prefix_trie.insert(pt, req.rid, req.prefix_keys,
+                                            req.prompt_len)
+            self.hot_path_stats["prefix_hit_tokens"] += req.prefix_hit_tokens
 
     def _record_first_tokens(self, reqs: list, firsts: list, now: float):
         """Record the prefill-sampled first tokens; returns the requests
@@ -357,6 +434,144 @@ class NanoCPEngine:
             self.hot_path_stats["prefill_eos_finishes"] += 1
         return reqs
 
+    # -- disaggregated prefill cells: chunked prefill, streamed handoff -- #
+    def _stage_handoff(self, req: Request) -> None:
+        """Open a ``HandoffTask`` for a request the scheduler staged on a
+        prefill cell (``plan.staged``): its placeholder pages are allocated
+        (the novel suffix on the cell, prefix-hit pages attached on their
+        decode owners); this queues its chunk forwards."""
+        cl = self.cluster
+        p = next(i for i in req.kv_binding if cl.role_of(i) == "prefill")
+        attach = tuple(i for i in req.kv_binding if i != p)
+        hit = req.prefix_hit_tokens - req.prefix_hit_tokens % self._dims0.page
+        self._handoff[req.rid] = HandoffTask(
+            req.rid, req.prompt_len, hit, self.chunk_tokens,
+            self._dims0.page, p, attach=attach)
+        self._cell_queue.setdefault(p, deque()).append(req.rid)
+        self.hot_path_stats["staged"] += 1
+
+    def _process_prefill_chunks(self, now: float) -> list:
+        """Advance every alive prefill cell by ONE chunk of its head task,
+        its KV scattered straight into the decode cluster.
+
+        Streaming is position-reversed: ``move_pages`` re-homes the tail of
+        the cell's placeholder fill, the chunk forward recomputes exactly
+        those positions (a causal forward over ``[0, end)`` keeping rows
+        ``[end - chunk, end)``; the flash kernel on CUDA) and the scatter
+        writes to the decode destination.  A cell's frames therefore never
+        hold live KV, and a cell crash loses no device state.  The first
+        token is sampled from the full-prompt chunk and recorded when the
+        handoff completes.  Returns the requests finished at activation
+        (prefill-EOS)."""
+        cl = self.cluster
+        pt = cl.page_table
+        ps = self._scatter.ps
+        rows, coords, ready = [], [], []
+        for p in sorted(cl.prefill_instances()):
+            if p in cl.dead_instances:
+                continue
+            q = self._cell_queue.get(p)
+            while q and (q[0] not in cl.prefilling
+                         or self._handoff.get(q[0]) is None
+                         or self._handoff[q[0]].instance != p):
+                q.popleft()                   # stale (crashed or re-staged)
+            if not q:
+                continue
+            rid = q[0]
+            task = self._handoff[rid]
+            cands = self.scheduler.handoff_candidates(
+                cl, task, task.next_chunk().tokens)
+            if not cands:
+                continue     # decode backpressure: no headroom, retry later
+            chunk, dest = task.complete_chunk(self._cp_buckets, cands)
+            ranges = pt.request_positions(rid)[p]
+            pos = [i for st, ln in ranges
+                   for i in range(st, st + ln)][-chunk.tokens:]
+            _, dst = pt.move_pages(rid, [(p, dest, chunk.tokens)])
+            end = pos[-1] + 1
+            toks = torch.as_tensor(self._prompts[rid][:end],
+                                   device=self.device)[None, :]
+            logits, caches = transformer.forward(self.cfg, self.params, toks,
+                                                 collect_kv=True,
+                                                 device=self.device)
+            if end == task.prompt_len and rid not in self._first_tok:
+                self._first_tok[rid] = logits[0, -1].argmax()
+            rows.append(self._pool_rows(
+                caches, torch.as_tensor(pos, device=self.device)))
+            inst, frame, off = dst
+            coords.append(np.stack([inst, frame % ps, frame // ps,
+                                    off]).astype(np.int32))
+            self.hot_path_stats["prefill_chunks"] += 1
+            self.hot_path_stats["handoff_tokens"] += chunk.tokens
+            if task.done:
+                q.popleft()
+                ready.append(rid)
+        if rows:
+            self._scatter_rows(rows, coords)
+        return self._activate_handoffs(ready, now)
+
+    def _activate_handoffs(self, rids: list, now: float) -> list:
+        """Promote fully streamed requests to the decode cluster on their
+        measured binding (``HandoffTask.binding``), record the first token,
+        and finish a first-token EOS before it takes a decode slot."""
+        if not rids:
+            return []
+        cl = self.cluster
+        firsts, reqs = [], []
+        for rid in rids:
+            req = cl.prefilling[rid]
+            task = self._handoff.pop(rid)
+            self.scheduler.admit_handoff(cl, req, task.binding(), now)
+            firsts.append(self._first_tok.pop(rid))
+            reqs.append(req)
+        eos_done = self._record_first_tokens(
+            reqs, torch.stack(firsts).tolist(), now)
+        self._register_prefixes(reqs)
+        return self._finish_prefill_eos(eos_done, now)
+
+    def _restage_prefilling(self, rec, now: float) -> list:
+        """Recovery of a request parked mid-handoff.  A dead prefill cell
+        loses only placeholder frames, so the crash costs the unstreamed
+        tail: it re-stages on a surviving cell with headroom
+        (``restore_ranges`` re-homes the lost positions as fresh
+        placeholders, the chunk stream recomputes them).  With no such
+        cell, or when a decode member holding streamed or attached pages
+        died, the request finishes degraded."""
+        cl = self.cluster
+        pt = cl.page_table
+        req = rec.req
+        rid = req.rid
+        task = self._handoff.get(rid)
+        lost = sum(n for _, n in rec.lost)
+        if (task is not None and task.instance in cl.dead_instances
+                and lost > 0):
+            survived = task.survived_tokens()
+            cells = [c for c in cl.prefill_instances()
+                     if c not in cl.dead_instances
+                     and cl.kv_headroom(c) >= lost]
+            if cells:
+                p2 = max(cells, key=lambda c: (cl.kv_headroom(c), -c))
+                pt.restore_ranges(rid, {p2: lost}, list(rec.lost))
+                req.kv_binding = sorted(set(task.binding()) | {p2})
+                self._handoff[rid] = HandoffTask(
+                    rid, req.prompt_len, survived, self.chunk_tokens,
+                    self._dims0.page, p2, attach=tuple(task.binding()))
+                self._cell_queue.setdefault(p2, deque()).append(rid)
+                self.results[rid].recovered = True
+                self.hot_path_stats["recovered_tokens"] += survived
+                self.hot_path_stats["reprefill_tokens"] += lost
+                return []
+        self._handoff.pop(rid, None)
+        self._first_tok.pop(rid, None)
+        cl.prefilling.pop(rid, None)
+        pt.free_request(rid)
+        self.results[rid].recovered = False
+        req.status = "degraded"
+        req.finish_time = now
+        self.finished.append(req)
+        self.hot_path_stats["degraded_finishes"] += 1
+        return [req]
+
     def _apply_escalations(self, escalations: list) -> None:
         """Move the KV of this step's escalations and relaxations (their
         page-table bookkeeping already happened inside the scheduler) with
@@ -378,13 +593,50 @@ class NanoCPEngine:
         self.timings["reshard_us"] = (self.timings.get("reshard_us", 0.0)
                                       + (time.perf_counter() - t0) * 1e6)
 
+    def _apply_copies(self, copies: list) -> None:
+        """Apply owed data-plane KV copies ((src, dst) [3, T] coordinate
+        pairs: CoW splits, hot-prefix replication) with one in-place
+        re-shard; its gathers read the pre-copy pools, so a batch whose
+        sources are never destinations is safe.  Quantized pools copy with
+        their scales (``migrate.KVReshard``)."""
+        if not copies:
+            return
+        src = np.concatenate([s for s, _ in copies], axis=1)
+        dst = np.concatenate([d for _, d in copies], axis=1)
+        if src.shape[1] == 0:
+            return
+        self._reshard(self.state, src, dst)
+        self.hot_path_stats["copy_tokens"] += int(src.shape[1])
+
+    def _cow_appends(self) -> None:
+        """Before lowering: an active request whose next decode append would
+        land in a SHARED frame (a fork or prefix sibling still reads it)
+        gets its partial tails split into exclusive clones, since
+        ``routing.lower_plan`` appends into exclusive frames.  Raises
+        ``KVSpillError`` into the spill loop when a clone cannot
+        allocate."""
+        pt = self.cluster.page_table
+        copies = []
+        for rid in sorted(self.cluster.active):
+            req = self.cluster.active[rid]
+            if (req.moe_binding >= 0
+                    and pt.append_needs_cow(rid, req.moe_binding)):
+                copies.append(pt.exclusive_tails(rid))
+        self._apply_copies(copies)
+
     def _handle_spill(self, err: KVSpillError, now: float) -> list:
-        """A decode append overran its shard at table lowering: escalate the
+        """A decode append overran its shard at table lowering: evict a cold
+        prefix-cache replica on the spilled instance first (cache-only
+        frames go before any live request moves), else escalate the
         spilled request onto shards with headroom, or, when no shard in the
         node can take the KV, finish it with a clean request-level OOM.
-        (The reference first evicts prefix-cache replicas on the spilled
-        instance; without the prefix cache there are none.)  Returns the
-        requests finished here (empty when relief worked)."""
+        Returns the requests finished here (empty when relief worked)."""
+        if self.prefix_trie is not None:
+            keep = getattr(self.cluster.active.get(err.rid), "prefix_keys",
+                           ())
+            if self.prefix_trie.evict(self.cluster.page_table, 1,
+                                      instance=err.instance, keep=keep):
+                return []            # the append can take a frame now: retry
         escs = self.scheduler.relieve_spill(self.cluster, err.rid,
                                             err.instance)
         if escs:
@@ -412,7 +664,25 @@ class NanoCPEngine:
         ``force=True`` is the drain-deadline fallback: requests whose KV
         cannot be evacuated take fail semantics (their KV on the instance
         is dropped and recovered: re-prefill or a degraded finish), so a
-        forced drain always completes with the instance empty and dead."""
+        forced drain always completes with the instance empty and dead.
+
+        Draining a prefill cell is the crash path with no data lost: its
+        frames are placeholders (streamed KV already lives on decode
+        instances), so its queued tails re-stage on surviving cells."""
+        if self.cluster.role_of(instance) == "prefill":
+            records = self.cluster.fail_instance(instance)
+            if self.prefix_trie is not None:
+                self.prefix_trie.drop_instance(instance)
+            self._recover(records, self._now())
+            self.hot_path_stats["drains"] += 1
+            return []
+        # cache holds on the leaver go first: cache-only frames free at
+        # once, frames shared with live requests become theirs and move
+        # with them (not rolled back on a failed drain: losing a cache
+        # replica is always safe)
+        if self.prefix_trie is not None:
+            self.prefix_trie.release_instance(self.cluster.page_table,
+                                              instance)
         # dead first so the evacuation planner never picks it as a receiver;
         # rolled back when evacuate raises
         self.cluster.dead_instances.add(instance)
@@ -486,7 +756,13 @@ class NanoCPEngine:
                     # dispatch-time MoE shard)
                     cl.page_table.pop_token(rid, i)
             infl.slots = keep
-        return self._recover(cl.fail_instance(instance), now)
+        records = cl.fail_instance(instance)
+        if self.prefix_trie is not None:
+            # the replicas died with the instance and the page table purged
+            # them: forget them without a release (which would free into
+            # the instance's fresh pool)
+            self.prefix_trie.drop_instance(instance)
+        return self._recover(records, now)
 
     def _recover(self, records: list, now: float) -> list:
         """Typed recovery of ``ClusterState.fail_instance`` records:
@@ -496,10 +772,15 @@ class NanoCPEngine:
         cl = self.cluster
         pt = cl.page_table
         ledger = {s: pt.free_frames(s) for s in cl.alive_instances()}
-        items, finished = [], []
+        items, finished, cows = [], [], []
         for rec in records:
             req = rec.req
             rid = req.rid
+            if rid in cl.prefilling:
+                # parked mid-handoff: re-stage the unstreamed tail (or
+                # degrade); the streamed prefix survives on decode instances
+                finished += self._restage_prefilling(rec, now)
+                continue
             if rid not in cl.active:
                 continue
             resident = sum(pt.shard_tokens(rid).values())
@@ -532,10 +813,16 @@ class NanoCPEngine:
             self.results[rid].recovered = True
             self.hot_path_stats["recovered_tokens"] += resident
             self.hot_path_stats["reprefill_tokens"] += lost
+            # surviving shards may hold SHARED partial tails (a fork or
+            # prefix sibling reads them): split them into exclusive clones
+            # before restore_ranges appends into their slack
+            # (place_recovery priced the clone frames)
+            cows.append(pt.exclusive_tails(rid))
             positions, coords = pt.restore_ranges(rid, split, ranges)
             req.kv_binding = sorted(set(req.kv_binding) | set(split)
                                     | {req.moe_binding})
             items.append((req, positions, coords))
+        self._apply_copies(cows)
         if items:
             self._reprefill_ranges(items)
         return finished
@@ -547,27 +834,19 @@ class NanoCPEngine:
         positions scattered in place into the replacement placement with
         one call.  Surviving shards are never read or rewritten; MLA
         re-prefills its latent."""
-        ps, khs = self._scatter.ps, self._scatter.khs
-        kv_k, kv_v, kv_coords = [], [], []
+        ps = self._scatter.ps
+        rows, kv_coords = [], []
         for req, positions, coords in items:
             seq = self._prompts[req.rid] + self.results[req.rid].tokens
             toks = torch.as_tensor(seq, device=self.device)[None, :]
             _, caches = transformer.forward(self.cfg, self.params, toks,
                                             collect_kv=True,
                                             device=self.device)
-            pos = torch.as_tensor(positions, device=self.device)
-            a = torch.stack([c["kv"][0][:, 0] for c in caches], dim=1)[:, :, pos]
-            b = torch.stack([c["kv"][1][:, 0] for c in caches], dim=1)[:, :, pos]
-            if self.cfg.is_mla:
-                kv_k.append(torch.cat([a, b], dim=-1)[..., None, :])
-            else:
-                kv_k.append(a.reshape(*a.shape[:3], khs, -1))
-                kv_v.append(b.reshape(*b.shape[:3], khs, -1))
+            rows.append(self._pool_rows(
+                caches, torch.as_tensor(positions, device=self.device)))
             inst, frame, off = coords
             kv_coords.append(np.stack([inst, frame % ps, frame // ps, off]))
-        self._scatter.scatter_kv(self.state, torch.cat(kv_k, dim=2),
-                                 torch.cat(kv_v, dim=2) if kv_v else None,
-                                 np.concatenate(kv_coords, axis=1))
+        self._scatter_rows(rows, kv_coords)
 
     def join_instance(self, instance: int, prewarm: bool = True) -> None:
         """Elastic scale-up: a failed or drained instance of the engine's
@@ -620,17 +899,69 @@ class NanoCPEngine:
         self.hot_path_stats["compacts"] += 1
         return records
 
-    @staticmethod
-    def _check_plan(plan) -> None:
-        """Besides admissions, escalations and relaxations, the scheduler's
-        plans need movement paths that are not ported yet."""
-        if plan.copies:
-            raise _not_ported("data-plane KV copies (CoW / hot-prefix "
-                              "replication)", 13)
-        if plan.staged:
-            raise _not_ported("prefill-cell staging", 13)
-        if plan.rejected or plan.shed or plan.preemptions:
-            raise _not_ported("SLO admission outcomes", 13)
+    def fork_request(self, parent_rid: int, max_new_tokens: int,
+                     next_token: int | None = None,
+                     now: float | None = None) -> int:
+        """Fork an ACTIVE request mid-decode: the child attaches to the
+        parent's resident KV (full frames shared by refcount, no data moved;
+        partial tails cloned, so divergent appends never overwrite each
+        other) and decodes on its own from here.
+
+        The pipeline is settled first: one harvest (the pinned copy and its
+        event), so the fork snapshots a harvested state.  ``next_token``
+        overrides the child's pending token (the parent's last sample, not
+        yet fed to a forward), in its transcript too, so ``prompt +
+        tokens`` is always the sequence the child processes; by default it
+        is the parent's.  ``max_new_tokens`` counts the child's emitted
+        tokens, the inherited ones included.  Returns the child's rid."""
+        now = self._now() if now is None else now
+        if self._inflight is not None:
+            self._harvest(now)
+        cl = self.cluster
+        parent = cl.active.get(parent_rid)
+        if parent is None:
+            raise ValueError(f"fork of inactive request {parent_rid}")
+        pt = cl.page_table
+        rid = len(self._prompts)
+        self._prompts[rid] = list(self._prompts[parent_rid])
+        try:
+            src, dst = pt.fork_request(rid, parent_rid)
+        except KVSpillError as err:
+            # the tail clones lack a frame: cold cache replicas go first
+            if self.prefix_trie is None or not self.prefix_trie.evict(
+                    pt, 1, instance=err.instance):
+                raise
+            src, dst = pt.fork_request(rid, parent_rid)
+        self._apply_copies([(src, dst)])
+        B = np.bincount([r.moe_binding for r in cl.active.values()],
+                        minlength=cl.num_instances)
+        members = [s for s in parent.kv_binding
+                   if s not in cl.dead_instances] or [parent.moe_binding]
+        m = int(min(members, key=lambda s: (B[s], s)))
+        child = Request(rid=rid, prompt_len=parent.prompt_len,
+                        max_new_tokens=max_new_tokens, arrival=now,
+                        prefix_keys=parent.prefix_keys,
+                        generated=parent.generated, status="running",
+                        kv_binding=sorted(set(parent.kv_binding) | {m}),
+                        moe_binding=m, node=cl.node_of(m), start_time=now,
+                        token_times=list(parent.token_times))
+        cl.active[rid] = child
+        cl.assign_slot(rid, m)
+        res = GenResult(rid, self._prompts[rid])
+        res.tokens = list(self.results[parent_rid].tokens)
+        self.results[rid] = res
+        if next_token is not None:
+            # the pending token's KV was never appended, so overriding the
+            # input overrides the transcript entry it came from
+            if not res.tokens or self.next_tok[parent_rid] != res.tokens[-1]:
+                raise RuntimeError(f"fork of {parent_rid}: the pending token "
+                                   "is not the transcript's last")
+            res.tokens[-1] = int(next_token)
+            self.next_tok[rid] = int(next_token)
+        else:
+            self.next_tok[rid] = self.next_tok[parent_rid]
+        self.hot_path_stats["forks"] += 1
+        return rid
 
     # ------------------------------------------------------------------ #
     def _harvest(self, now: float) -> list:
@@ -688,21 +1019,50 @@ class NanoCPEngine:
     def step(self, now: float | None = None) -> list:
         """One scheduling+decode iteration, pipelined one step ahead.
 
-        Order: schedule -> prefill + in-place scatter -> lower routing
-        tables -> harvest the in-flight iteration's tokens -> patch input
-        tokens -> upload tables -> dispatch this iteration.  Returns the
-        requests whose completion became visible during this call.
+        Order: advance the prefill cells' chunk streams (a completed
+        handoff activates before this step's schedule sees the active set)
+        -> schedule (stage, admit, escalate, relax, shed, reject) -> the
+        re-shard and the owed copies -> prefill + in-place scatter -> CoW
+        split of shared tails and lowering of the routing tables -> harvest
+        the in-flight iteration's tokens -> patch input tokens -> upload
+        tables -> dispatch this iteration.  Returns the requests whose
+        completion became visible during this call.
         """
         t_step = time.perf_counter()
         now = self._now() if now is None else now
         self.timings = {}
+        handoff_done = []
+        if self.cluster.prefill_cells:
+            t0 = time.perf_counter()
+            handoff_done = self._process_prefill_chunks(now)
+            self.timings["handoff_us"] = (time.perf_counter() - t0) * 1e6
         plan = self.scheduler.schedule(self.cluster, now)
-        self._check_plan(plan)
+        for req in plan.staged:
+            self._stage_handoff(req)
+        # the re-shard and the copies run before this step's admissions
+        # scatter into (possibly just freed) frames
         self._apply_escalations(plan.escalations + plan.relaxations)
-        prefill_done = []
+        self._apply_copies(plan.copies)
+        # admission control's typed outcomes: the request never ran (no
+        # tokens) and finishes here, flagged on its result
+        dropped = []
+        for req in plan.rejected + plan.shed:
+            res = self.results.get(req.rid)
+            if res is not None:
+                if req.status == "rejected":
+                    res.rejected = True
+                else:
+                    res.shed = True
+            req.finish_time = now
+            self.finished.append(req)
+            dropped.append(req)
+        self.hot_path_stats["rejected"] += len(plan.rejected)
+        self.hot_path_stats["shed"] += len(plan.shed)
+        self.hot_path_stats["preemptions"] += plan.preemptions
+        prefill_done = handoff_done + dropped
         if plan.admitted:
             t0 = time.perf_counter()
-            prefill_done = self._prefill_batch(plan.admitted, now)
+            prefill_done += self._prefill_batch(plan.admitted, now)
             self.timings["prefill_us"] = (time.perf_counter() - t0) * 1e6
         if not self.cluster.active:
             return prefill_done + self._harvest(now)
@@ -716,6 +1076,7 @@ class NanoCPEngine:
         attempts = len(self.cluster.active) + 1
         while True:
             try:
+                self._cow_appends()
                 tbl = routing.lower_plan(self.cluster, plan,
                                          buckets=self.shape_buckets,
                                          append_tokens=True,
@@ -801,9 +1162,10 @@ class NanoCPEngine:
 
     @property
     def pending(self) -> bool:
-        """Whether requests are waiting, decoding or not yet harvested."""
+        """Whether requests are waiting, prefilling on a cell, decoding or
+        not yet harvested."""
         return bool(self.cluster.active or self.cluster.waiting
-                    or self._inflight is not None)
+                    or self.cluster.prefilling or self._inflight is not None)
 
     def run(self, max_iters: int = 1000) -> dict:
         it = 0

@@ -87,7 +87,6 @@ def test_unported_paths_raise_not_implemented():
     from dataclasses import replace
 
     from repro_torch.configs import CONFIGS, reduced
-    from repro_torch.core.state import IterationPlan
     from repro_torch.models import transformer
     from repro_torch.serving.engine import NanoCPEngine
 
@@ -96,21 +95,13 @@ def test_unported_paths_raise_not_implemented():
                                      dtype=torch.float32)
     kw = dict(num_instances=1, instances_per_node=1, kv_capacity_tokens=128,
               tp=1, device="cpu")
-    for extra, item in ((dict(prefix_cache=True), "item 13"),
-                        (dict(prefill_cells=1), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            NanoCPEngine(cfg, params, **kw, **extra)
     with pytest.raises(ValueError, match="kv_dtype"):
         NanoCPEngine(cfg, params, **kw, kv_dtype="fp16")
     with pytest.raises(ValueError, match="backend"):
         NanoCPEngine(cfg, params, **kw, backend="nccl")
     eng = NanoCPEngine(cfg, params, **kw)
-    copies = IterationPlan(instances=[], copies=[(None, None)])
-    for call, item in ((lambda: eng.add_audio_request(None, []), "item 12"),
-                       (lambda: eng._check_plan(copies), "item 13"),
-                       (lambda: eng.fork_request(0, 4), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        eng.add_audio_request(None, [])
     with pytest.raises(NotImplementedError, match="item 11"):
         transformer.init_params(replace(cfg, family="ssm"), device="cpu")
 
