@@ -143,7 +143,24 @@ Phases, each printing one JSON line:
                tolerance contract, where a decode step whose router chose
                other experts than the forward's is counted, not held
                (``quant_contract``).
- 14. summary — the script's seconds, ``{"kernels": [...]}``, then the last
+ 14. ssm     — Mamba2-370M at full depth (48 SSD layers, no attention, no
+               FFN: no pools and no kernel launch; DCP is inapplicable and
+               placement is batch balance) and Jamba-v0.1 at full width,
+               8 of its 32 layers (one period: 7 SSD layers, attention at
+               layer 4, MoE on the odd layers, capacity factor 8), the SSD
+               vectors of ``init_params(seed=0)`` perturbed (seeded).  Both
+               pin SSM_SLOTS slots per instance.  Each runs the main path's
+               traffic at (4, 2) both ways with the profiles (the eager one
+               splits the step's device time into SSD layers, attention,
+               MoE experts and the rest by ``record_function`` ranges), and
+               the 2000-token prefill with its SSD scan's share.  Mamba2
+               runs the reference's ``refusal`` cell at (2, 2): the drain
+               raises ``UnsupportedDrainError`` and changes nothing, a crash
+               degrades only the requests whose slot it held.  Jamba runs
+               (2, 4) with graphs, and its paged call (G 4 over 4 kv heads
+               of 128 per device) and prefill attention (32 q / 8 kv heads,
+               S 2000) are re-checked and timed at the main path's inputs.
+ 15. summary — the script's seconds, ``{"kernels": [...]}``, then the last
                line
                ``{"ok": true, "device": {...}}``.
 
@@ -184,16 +201,17 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import moe_parallel  # noqa: E402
+from repro_torch.core import dcp, moe_parallel  # noqa: E402
 from repro_torch.core.bucketing import CPBuckets, ShapeBuckets  # noqa: E402
 from repro_torch.core.scheduler import (AdmissionController,  # noqa: E402
                                         DualBalancedScheduler, _mk_plan)
 from repro_torch.kernels import build, quant, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
-from repro_torch.models import moe, transformer  # noqa: E402
+from repro_torch.models import moe, ssm, transformer  # noqa: E402
 from repro_torch.serving import slo  # noqa: E402
-from repro_torch.serving.engine import NanoCPEngine  # noqa: E402
+from repro_torch.serving.engine import (NanoCPEngine,  # noqa: E402
+                                        UnsupportedDrainError)
 from repro_torch.serving.simulator import ClusterSimulator  # noqa: E402
 from repro_torch.serving.workload import TraceRequest, Workload  # noqa: E402
 
@@ -226,6 +244,10 @@ PROFILE_STEPS = 5
 # float32 parameters, 5.2 GB), capacity factor 8 so that no token drops
 PHI_LAYERS = 8
 PHI_CAPACITY_FACTOR = 8.0
+JAMBA_LAYERS = 8                # one period: 7 SSD + 1 attention, 4 MoE
+JAMBA_CAPACITY_FACTOR = 8.0     # E/k: no token dropped
+SSM_SLOTS = 4                   # slots per instance of the SSM models (the
+                                # reference's SSM cells' one M bucket)
 # Llama-4-Scout: 4 of its 48 layers (a layer is 2.2e9 float32 parameters,
 # 8.8 GB); capacity factor E/k = 16, so C >= T and no token drops.
 # DeepSeek-V3: 1 of its 60 layers (its 256 experts are 45.1 GB in float32);
@@ -934,13 +956,23 @@ class ExpertLoads:
         return [out[k] for k in sorted(out)]
 
 
+def attention_layers(cfg) -> int:
+    """The model's attention layers: each launches the paged kernel once
+    per decode step and flash once per prefilled request."""
+    return sum(k["mixer"] == "attn" for k in cfg.layer_kinds())
+
+
 def make_engine(cfg, params, prompts, pipeline: bool, *,
                 new_tokens: int = NEW_TOKENS, **kw) -> NanoCPEngine:
     """The main path's engine: virtual (I=4, TP=2) mesh, the prompts queued.
-    ``kw`` overrides engine settings (kv dtype, the escalation cell's)."""
+    SSM models pin SSM_SLOTS slots per instance, the one M bucket of the
+    reference's SSM cells.  ``kw`` overrides engine settings (kv dtype, the
+    escalation cell's)."""
     args = dict(num_instances=4, instances_per_node=4,
                 kv_capacity_tokens=4096, page_size=16, tp=2,
                 buckets=CPBuckets(edges=(100, 256), degrees=(1, 2, 3)))
+    if cfg.family in ("ssm", "hybrid"):
+        args["max_slots_per_instance"] = SSM_SLOTS
     args.update(kw)
     eng = NanoCPEngine(cfg, params, pipeline=pipeline, device=DEV, **args)
     for p in prompts:
@@ -1055,16 +1087,19 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
     launches = {"paged_decode": pa.LAUNCHES, "flash_fwd": fa.LAUNCHES}
     by_page = dict(pa.LAUNCHES_BY_PAGE)
     steps = eng.hot_path_stats["steps"]
-    want = {"paged_decode": steps * cfg.num_layers,
-            "flash_fwd": len(prompts) * cfg.num_layers}
+    n_attn = attention_layers(cfg)
+    want = {"paged_decode": steps * n_attn, "flash_fwd": len(prompts) * n_attn}
     if launches != want:
         fail(f"{tag}: launches {launches}, expected {want} "
-             f"(steps x layers, prompts x layers)")
-    page_name = str(eng.state["kv_pool" if cfg.is_mla else "k_pool"].dtype
-                    ).replace("torch.", "")
-    if by_page != {page_name: want["paged_decode"]}:
-        fail(f"{tag}: paged launches by page type {by_page}, expected all "
-             f"{want['paged_decode']} of {page_name}")
+             f"(steps x attention layers, prompts x attention layers)")
+    want_pages = {}
+    if n_attn:
+        page_name = str(eng.state["kv_pool" if cfg.is_mla else "k_pool"].dtype
+                        ).replace("torch.", "")
+        want_pages[page_name] = want["paged_decode"]
+    if by_page != want_pages:
+        fail(f"{tag}: paged launches by page type {by_page}, expected "
+             f"{want_pages}")
     st = eng.aot.stats
     if st.donation_copies:
         fail(f"{tag}: pools moved during a step: {st.as_dict()}")
@@ -1141,6 +1176,8 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
         "aot": st.as_dict(),
         "last_bucket": list(eng.last_bucket),
         "pool_bytes": nbytes(*eng.state.values()),
+        "ssm_state_bytes": nbytes(*(eng.state[k] for k in dcp.SSM_STATE
+                                    if k in eng.state)),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
     row["tokens"] = {r: g.tokens for r, g in eng.results.items()}
     emit({k: v for k, v in row.items() if k != "tokens"})
@@ -1201,18 +1238,36 @@ MOE_RANGES = {
                        (moe_parallel, "_combine")),
     "moe.gate_combine": ((moe, "combine"),),
 }
+# the decode step's mixers (an SSD layer; an attention layer, phases 1-4
+# and its projections), for the SSM models' profiles.  ``build_decode_step``
+# binds the attention layer when a bucket's step is built, so the ranges
+# must be active from the engine's first step on.
+LAYER_RANGES = {
+    "layer.ssm": ((dcp, "_ssm_layer"),),
+    "layer.attention": ((dcp, "_attn_layer"), (dcp, "_mla_layer")),
+}
+# the prefill's SSD blocks and, inside them, the chunked scan
+SSD_RANGES = {
+    "ssm.block": ((ssm, "ssm_block"),),
+    "ssm.ssd_scan": ((ssm, "ssd_chunked"),),
+}
+RANGE_NAMES = frozenset(MOE_RANGES) | frozenset(LAYER_RANGES) | frozenset(
+    SSD_RANGES)
 
 
-class MoERanges:
-    """While active, runs each MoE piece of ``MOE_RANGES`` inside a
-    ``torch.profiler.record_function`` range of its name, so a trace can
-    give the device time of its kernels.  The ranges do not nest.  The
+class Ranges:
+    """While active, runs each piece of ``ranges`` (name -> (module,
+    attribute) sites) inside a ``torch.profiler.record_function`` range of
+    its name, so a trace can give the device time of its kernels.  The
     pieces are swapped on their modules, so a call site that binds one by
     direct import escapes its range: ``range_device_ms`` fails then."""
 
+    def __init__(self, *ranges: dict):
+        self.ranges = {k: v for r in ranges for k, v in r.items()}
+
     def __enter__(self):
         self._saved = []
-        for name, sites in MOE_RANGES.items():
+        for name, sites in self.ranges.items():
             for mod, attr in sites:
                 fn = getattr(mod, attr)
                 self._saved.append((mod, attr, fn))
@@ -1231,21 +1286,22 @@ class MoERanges:
             setattr(mod, attr, fn)
 
 
-def range_device_ms(prof, absent=()) -> dict:
-    """Device time (ms) of the kernels launched inside each MoE range: the
-    host-side range's kernels and its children's.  (The range's device-side
-    annotation spans from its first kernel to its last, idle gaps
-    included, so it is not used.)  Fails if a range other than those the
-    traced path does not run (``absent``) recorded no device time."""
-    out = {name: 0.0 for name in MOE_RANGES}
+def range_device_ms(prof, absent=(), ranges=MOE_RANGES) -> dict:
+    """Device time (ms) of the kernels launched inside each range of
+    ``ranges``: the host-side range's kernels and its children's.  (The
+    range's device-side annotation spans from its first kernel to its
+    last, idle gaps included, so it is not used.)  Fails if a range other
+    than those the traced path does not run (``absent``) recorded no device
+    time."""
+    out = {name: 0.0 for name in ranges}
     for e in prof.events():
         if e.name in out and e.device_type == torch.autograd.DeviceType.CPU:
             out[e.name] += float(e.device_time_total) / 1e3
     for name, ms in out.items():
         if ms <= 0 and name not in absent:
-            fail(f"profile: MoE range {name} recorded no device time "
+            fail(f"profile: range {name} recorded no device time "
                  f"(a call site no longer goes through "
-                 f"{', '.join(attr for _, attr in MOE_RANGES[name])})")
+                 f"{', '.join(attr for _, attr in ranges[name])})")
     return out
 
 
@@ -1255,7 +1311,7 @@ def kernel_events(prof) -> list:
     kernels, so both are left out."""
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0 and e.key not in MOE_RANGES]
+            and e.self_device_time_total > 0 and e.key not in RANGE_NAMES]
 
 
 # CUDA API calls (``cuda*`` and ``cu*`` entry points) that put work on a
@@ -1287,7 +1343,7 @@ def profile_engine(cfg, params, prompts, cuda_graphs: bool) -> tuple:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    ranges = contextlib.nullcontext() if cuda_graphs else MoERanges()
+    ranges = contextlib.nullcontext() if cuda_graphs else Ranges(MOE_RANGES)
     with (torch.no_grad(), ranges,
           torch.profiler.profile(activities=acts) as prof):
         t0 = time.perf_counter()
@@ -1339,6 +1395,21 @@ def profile_engine(cfg, params, prompts, cuda_graphs: bool) -> tuple:
     if cfg.is_moe and not cuda_graphs:
         row["moe_share"] = {k: v * 1e3 / device_us
                             for k, v in range_device_ms(prof).items()}
+    if cfg.family in ("ssm", "hybrid") and not cuda_graphs:
+        # device ms per step by piece (the caller's LAYER_RANGES were on
+        # from the engine's first step)
+        absent = set() if cfg.is_moe else set(MOE_RANGES)
+        if not cfg.has_attention:
+            absent.add("layer.attention")
+        ms = range_device_ms(prof, absent, {**LAYER_RANGES, **MOE_RANGES})
+        split = {"ssm_layers": ms["layer.ssm"],
+                 "attention": ms["layer.attention"],
+                 "moe_experts": ms["moe.expert_ffn"],
+                 "moe_routing_all_to_all_combine": sum(
+                     ms[k] for k in MOE_RANGES if k != "moe.expert_ffn")}
+        split["rest"] = device_us / 1e3 - sum(split.values())
+        row["device_ms_per_step_split"] = {k: v / PROFILE_STEPS
+                                           for k, v in split.items()}
     emit(row)
     eng.close()
     del eng
@@ -1355,7 +1426,11 @@ def both_ways(cfg, params, prompts, label: str) -> dict:
     pe, pg = run_pair(cfg, params, prompts, True, tag=f"{label} pipelined")
     ne, ng = run_pair(cfg, params, prompts, False,
                       tag=f"{label} non-pipelined", keep_logits=False)
-    captured, prof_e = profile_engine(cfg, params, prompts, cuda_graphs=False)
+    layers = (Ranges(LAYER_RANGES) if cfg.family in ("ssm", "hybrid")
+              else contextlib.nullcontext())
+    with layers:
+        captured, prof_e = profile_engine(cfg, params, prompts,
+                                          cuda_graphs=False)
     _, prof_g = profile_engine(cfg, params, prompts, cuda_graphs=True)
     side = {}
     for way, pipe, nopipe, prof in (("graphs", pg, ng, prof_g),
@@ -1388,15 +1463,17 @@ def both_ways(cfg, params, prompts, label: str) -> dict:
 def profile_prefill(cfg, params, prompt) -> dict:
     """Device time of one prefill forward (with KV collection, as the
     engine runs it) of the longest prompt, by ``torch.profiler``: all
-    kernels, the flash kernel's share, and for an MoE model the device time
-    of its MoE pieces (``MOE_RANGES``)."""
+    kernels, the flash kernel's share, for an MoE model the device time
+    of its MoE pieces (``MOE_RANGES``), and for an SSM model that of its
+    SSD blocks and, inside them, the chunked scan (``SSD_RANGES``)."""
     toks = torch.as_tensor(prompt, device=DEV)[None]
     with torch.no_grad():
         transformer.forward(cfg, params, toks, collect_kv=True, device=DEV)
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        with MoERanges(), torch.profiler.profile(activities=acts) as prof:
+        with (Ranges(MOE_RANGES, SSD_RANGES),
+              torch.profiler.profile(activities=acts) as prof):
             t0 = time.perf_counter()
             transformer.forward(cfg, params, toks, collect_kv=True, device=DEV)
             torch.cuda.synchronize()
@@ -1414,6 +1491,10 @@ def profile_prefill(cfg, params, prompt) -> dict:
         row["moe_device_ms"] = ms = range_device_ms(
             prof, absent=("moe.all_to_all",))
         row["moe_share"] = {k: v / row["device_ms"] for k, v in ms.items()}
+    if cfg.family in ("ssm", "hybrid"):
+        ms = range_device_ms(prof, ranges=SSD_RANGES)
+        row.update(ssm_block_ms=ms["ssm.block"], ssd_scan_ms=ms["ssm.ssd_scan"],
+                   ssd_scan_share=ms["ssm.ssd_scan"] / row["device_ms"])
     emit(row)
     return row
 
@@ -1558,6 +1639,7 @@ def main() -> None:
         "deepseek", replace(get_config("deepseek-v3"), num_layers=DS_LAYERS,
                             capacity_factor=DS_CAPACITY_FACTOR),
         ksum, mesh_runs, name="paged_decode_ds", quant=("fp8", "int8"))
+    jamba = run_ssm_phase(ksum)["jamba"]
 
     src, replaces = ("src/repro_torch/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_attention.py:36")
@@ -1597,7 +1679,11 @@ def main() -> None:
             ("flash_fwd_ds", fsrc, freplaces,
              ds["pipelined"]["launches"]["flash_fwd"]),
             ("paged_decode_tp1", src, replaces,
-             serve["launches"]["paged_decode"])):
+             serve["launches"]["paged_decode"]),
+            ("paged_decode_jamba", src, replaces,
+             jamba["pipelined"]["launches"]["paged_decode"]),
+            ("flash_fwd_jamba", fsrc, freplaces,
+             jamba["pipelined"]["launches"]["flash_fwd"])):
         rows = ksum[name]
         # the timing at the main path's shapes: the captured paged call, and
         # the 2000-token prompt's prefill attention; bf16 q beside it
@@ -2589,6 +2675,169 @@ def run_archetype_phase(phase: str, cfg, ksum: dict, runs, *, name: str,
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+class LargestFlashCall:
+    """While active, wraps ``fa.flash_attention`` and keeps a frozen copy of
+    the (q, k, v) of the call with the longest query: a prefill's
+    attention at the main path's shape."""
+
+    def __init__(self):
+        self.args = None
+        self._launch = fa.flash_attention
+
+    def _record(self, q, k, v, **kw):
+        if self.args is None or q.shape[1] > self.args[0].shape[1]:
+            self.args = (q.clone(), k.clone(), v.clone())
+        return self._launch(q, k, v, **kw)
+
+    def __enter__(self):
+        fa.flash_attention = self._record
+        return self
+
+    def __exit__(self, *exc):
+        fa.flash_attention = self._launch
+
+
+def perturb_ssm(params) -> int:
+    """Overwrite the SSD vectors the init makes 0, 1 or -2, from a seeded
+    generator, so that a dropped term shows: A_log and dt_bias shifted by
+    N(0, BIAS_STD), D and the gated norm's scale 1 + N(0, NORM_STD), the
+    conv bias N(0, BIAS_STD).  Returns the number of leaves overwritten."""
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    n = 0
+    for lp in params["blocks"]["layers"]:
+        for name, t in lp["mixer"].items():
+            if name not in ("A_log", "dt_bias", "D", "norm", "conv_b"):
+                continue
+            noise = torch.randn(t.shape, generator=gen, device=DEV)
+            if name in ("A_log", "dt_bias"):
+                t.add_(noise.mul_(BIAS_STD))
+            elif name == "conv_b":
+                t.copy_(noise.mul_(BIAS_STD))
+            else:
+                t.copy_(noise.mul_(NORM_STD).add_(1.0))
+            n += 1
+    return n
+
+
+def run_refusal_cell(cfg, params) -> dict:
+    """The reference's chaos ``refusal`` cell on an attention-free model at
+    (2, 2), graphs on: ``drain_instance`` raises ``UnsupportedDrainError``
+    and changes neither the cluster nor the serve state; ``fail_instance``
+    of request 0's slot instance then finishes exactly the requests whose
+    slot it held, degraded with a greedy prefix, and the others in full."""
+    tag = f"{cfg.name} refusal"
+    prompts = chaos_prompts(cfg, (24, 48))
+    eng = make_engine(cfg, params, prompts, True, num_instances=2,
+                      instances_per_node=2, tp=2,
+                      buckets=CPBuckets(edges=(100_000,), degrees=(1, 1)))
+    cl = eng.cluster
+    with torch.no_grad():
+        eng.step()
+        eng.step()
+
+        def snapshot():
+            torch.cuda.synchronize()
+            return (set(cl.dead_instances), dict(cl.slot_map),
+                    {r: (q.moe_binding, list(q.kv_binding))
+                     for r, q in cl.active.items()},
+                    cl.page_table.frame_audit(), dict(eng.hot_path_stats),
+                    {k: v.clone() for k, v in eng.state.items()})
+
+        before = snapshot()
+        try:
+            eng.drain_instance(0)
+        except UnsupportedDrainError as err:
+            refusal = str(err)
+        else:
+            fail(f"{tag}: drain_instance did not refuse")
+        after = snapshot()
+        if after[:5] != before[:5] or any(
+                not torch.equal(after[5][k], v) for k, v in before[5].items()):
+            fail(f"{tag}: the refused drain changed the cluster or state")
+        del before, after
+        victim = cl.active[0].moe_binding
+        on_victim = {r for r, (i, _) in cl.slot_map.items() if i == victim}
+        degraded = eng.fail_instance(victim)
+        if {r.rid for r in degraded} != on_victim or 0 not in on_victim:
+            fail(f"{tag}: degraded {[r.rid for r in degraded]}, slots on "
+                 f"the victim {on_victim}")
+        for _ in range(NEW_TOKENS + 64):
+            if not eng.pending:
+                break
+            eng.step()
+    row = chaos_check(cfg, params, prompts, eng, tag, tuple(on_victim))
+    row.update(refusal=refusal, victim=victim, degraded=sorted(on_victim))
+    emit(row)
+    eng.close()
+    del eng
+    free_memory()
+    return row
+
+
+def run_ssm_phase(ksum: dict) -> dict:
+    """Phase 14: the SSM models.  Mamba2-370M at full depth (attention-free:
+    no pools, no paged or flash launch; DCP inapplicable, placement is batch
+    balance) and Jamba-v0.1 at full width, one period of its layers (7 SSD
+    + 1 attention, MoE on the odd ones, capacity factor 8), random float32
+    weights (seed 0) with the SSD vectors perturbed (``perturb_ssm``).
+    Each: the main path's traffic at (4, 2) with graphs on and off and the
+    profiles (``both_ways``; the eager profile splits the step's device
+    time into SSD layers, attention, MoE experts and the rest), the
+    2000-token prefill with its SSD scan's share; Mamba-2 the ``refusal``
+    cell at (2, 2); Jamba (2, 4) with graphs, and its paged and flash calls
+    re-checked and timed at the main path's inputs (``paged_decode_jamba``,
+    ``flash_fwd_jamba``).  Returns the runs' rows by model."""
+    out = {}
+    for label, cfg in (
+            ("mamba2", get_config("mamba2-370m")),
+            ("jamba", replace(get_config("jamba-v0.1-52b"),
+                              num_layers=JAMBA_LAYERS,
+                              capacity_factor=JAMBA_CAPACITY_FACTOR))):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = transformer.init_params(cfg, seed=0, device=DEV,
+                                         dtype=torch.float32)
+        perturbed = perturb_ssm(params)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        emit({"phase": "ssm", "model": cfg.name, "layers": cfg.num_layers,
+              "attention_layers": attention_layers(cfg),
+              "capacity_factor": cfg.capacity_factor if cfg.is_moe else None,
+              "params": n_params, "param_gb": n_params * 4 / 1e9,
+              "perturbed_leaves": perturbed,
+              "init_s": time.perf_counter() - t0,
+              "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, (L,)) for L in PROMPT_LENS]
+        runs = out[label] = both_ways(cfg, params, prompts, label)
+        longest = prompts[int(np.argmax(PROMPT_LENS))]
+        profile_prefill(cfg, params, longest)
+        if not cfg.has_attention:
+            run_refusal_cell(cfg, params)
+        else:
+            runs["2x4 pipelined"] = run_engine(
+                cfg, params, prompts, True, tag=f"{label} 2x4 pipelined",
+                num_instances=2, instances_per_node=2, tp=4,
+                buckets=CPBuckets(edges=(256,), degrees=(1, 2)))
+            args, sc = runs["captured"]
+            for a in (args, as_bf16_call(args)):
+                row = paged_row(a, a[0].dtype, f"{label} main path",
+                                scale=sc, name=f"paged_decode_{label}")
+                emit(row)
+                ksum.setdefault(row["name"], []).append(row)
+            with torch.no_grad(), LargestFlashCall() as rec:
+                transformer.forward(cfg, params,
+                                    torch.as_tensor(longest, device=DEV)[None])
+            for qkv in (rec.args, tuple(t.bfloat16() for t in rec.args)):
+                ksum.setdefault(f"flash_fwd_{label}", []).append(
+                    flash_row(f"flash_fwd_{label}", *qkv, None, 0, timed=True))
+            del rec
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 

@@ -3,8 +3,8 @@ reference it is held against).
 
 Same module layout as ``repro``: ``configs`` (model configs), ``kernels``
 (hand-written Hopper kernels with their plain torch versions, ``ops``
-dispatch by tensor device), ``models`` (dense GQA and MLA prefill
-forward), ``core`` (host control plane, the four-phase DCP decode step on
+dispatch by tensor device), ``models`` (the prefill forward of the dense
+GQA, MLA, MoE, SSM and hybrid families), ``core`` (host control plane, the four-phase DCP decode step on
 a virtual (instance, tp) mesh, prefill KV scatter, the per-bucket step
 cache) and ``serving`` (``NanoCPEngine``).  Imports torch and numpy only.
 """

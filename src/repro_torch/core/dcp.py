@@ -1,6 +1,6 @@
 """DCP decode step (§5) on a virtual (instance, tp) mesh
-(port of ``repro/core/dcp.py``: the dense GQA and MLA paths, dense and
-MoE FFNs, routed and dense backends).
+(port of ``repro/core/dcp.py``: the dense GQA, MLA and SSD paths, dense
+and MoE FFNs, routed and dense backends).
 
 The JAX package runs the step per device inside ``shard_map`` over the
 (`data`, `model`) mesh.  The port runs the whole mesh in one process on one
@@ -40,8 +40,18 @@ scales ``k_scale``/``v_scale`` (MLA: one ``kv_scale``)
 ``[nb, n_attn, I, tp, F']``; appends quantize under the offset-0 rule
 (``kernels/quant.py``) and the paged kernel dequantizes as it reads.
 
-Not ported yet (each raises ``NotImplementedError``): SSM and
-encoder-decoder steps.
+SSM layers (Mamba-2, and Jamba's seven of eight) carry per-slot state
+instead of KV: conv windows ``conv_x``/``conv_B``/``conv_C``
+``[nb, n_ssm, I, M, cw-1, ·]`` and ``ssm_state`` ``[nb, n_ssm, I, M, nh,
+hd, ns]`` float32, pinned to the request's decode slot and updated in
+place by each step.  Heads and d_inner are TP over the virtual devices as
+in the reference (B and C replicated); the gated RMSNorm sums each
+device's squares over tp before it normalises over the whole d_inner, and
+``out_proj`` is row-parallel.  Pools are indexed by attention ordinal and
+SSM state by SSM ordinal within a block.  Mamba-2 has no attention and no
+pools.
+
+Not ported yet (raises ``NotImplementedError``): the encoder-decoder step.
 """
 from __future__ import annotations
 
@@ -196,11 +206,15 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
     pad_q, pad_q_rows, tile_kv, perm = _head_tools(cfg, tp)
     kinds = cfg.block_pattern()
     for kind in kinds:
-        ffn_dims = ((cfg.moe_d_ff_, cfg.moe_d_ff_ * cfg.num_shared_experts)
-                    if kind["ffn"] == "moe" else (cfg.d_ff,))
+        ffn_dims = {"moe": (cfg.moe_d_ff_,
+                            cfg.moe_d_ff_ * cfg.num_shared_experts),
+                    "dense": (cfg.d_ff,), "none": ()}[kind["ffn"]]
         for f in ffn_dims:
             if f % tp:
                 raise ValueError(f"FFN width {f} does not split over tp={tp}")
+    if any(k["mixer"] == "ssm" for k in kinds) and cfg.ssm_num_heads % tp:
+        raise ValueError(f"{cfg.ssm_num_heads} SSM heads do not split over "
+                         f"tp={tp}")
 
     def row_chunks(w):
         nb, R, D = w.shape
@@ -239,14 +253,35 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
             m.update(q_norm=mx["q_norm"], k_norm=mx["k_norm"])
         return m
 
+    def ssm_mixer(mx):
+        """in_proj split by sharding class into column views (no copy):
+        z, x and dt are TP over heads, B and C replicated; the conv weights
+        and biases likewise into their x, B and C parts."""
+        din, ns = cfg.ssm_d_inner, cfg.ssm_state
+        cut = [din, din, ns, ns, mx["in_proj"].shape[-1] - 2 * din - 2 * ns]
+        m = dict(zip(("wz", "wx", "wB", "wC", "wdt"),
+                     torch.split(mx["in_proj"], cut, dim=-1)))
+        for name, w in (("conv", mx["conv_w"]), ("convb", mx["conv_b"])):
+            m.update(zip((f"{name}_x", f"{name}_B", f"{name}_C"),
+                         torch.split(w, [din, ns, ns], dim=-1)))
+        m.update({k: mx[k] for k in ("A_log", "D", "dt_bias", "norm")})
+        m["out_proj"] = row_chunks(mx["out_proj"])
+        return m
+
     def conv_layer(lp, kind):
-        mx, ffn = lp["mixer"], lp["ffn"]
-        mixer = mla_mixer(mx) if cfg.is_mla else gqa_mixer(mx)
-        if kind["ffn"] != "moe":
-            ffn = {"wi_gate": ffn["wi_gate"], "wi_up": ffn["wi_up"],
-                   "wo": row_chunks(ffn["wo"])}
-        return {"ln1": lp["ln1"], "ln2": lp["ln2"], "mixer": mixer,
-                "ffn": ffn}
+        mx = lp["mixer"]
+        if kind["mixer"] == "ssm":
+            mixer = ssm_mixer(mx)
+        else:
+            mixer = mla_mixer(mx) if cfg.is_mla else gqa_mixer(mx)
+        out = {"ln1": lp["ln1"], "mixer": mixer}
+        if kind["ffn"] != "none":
+            ffn = lp["ffn"]
+            if kind["ffn"] == "dense":
+                ffn = {"wi_gate": ffn["wi_gate"], "wi_up": ffn["wi_up"],
+                       "wo": row_chunks(ffn["wo"])}
+            out.update(ln2=lp["ln2"], ffn=ffn)
+        return out
 
     return {"embed": params["embed"],
             "blocks": {"layers": [conv_layer(lp, kind) for lp, kind
@@ -255,8 +290,11 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
 
 
 # =========================================================================== #
-# serve state (KV pools), global [I, tp, ...] tensors
+# serve state (KV pools, SSM state), global [I, ...] tensors
 # =========================================================================== #
+SSM_STATE = ("conv_x", "conv_B", "conv_C", "ssm_state")
+
+
 def init_serve_state(cfg: ModelConfig, dims: DecodeDims, num_instances: int,
                      dtype=torch.bfloat16, device="cuda") -> dict:
     """Zeroed pools ``k_pool``/``v_pool`` ``[nb, n_attn, I, tp, F', page,
@@ -267,26 +305,42 @@ def init_serve_state(cfg: ModelConfig, dims: DecodeDims, num_instances: int,
     Quantized pools (``dims.kv_dtype`` fp8/int8) hold codes of the storage
     dtype, plus ``k_scale``/``v_scale`` (MLA: ``kv_scale``)
     ``[nb, n_attn, I, tp, F']`` float32 scales set to 1 (any positive value
-    works: a frame is always refilled from offset 0 before it is read)."""
+    works: a frame is always refilled from offset 0 before it is read).
+
+    SSM layers add their per-slot state: conv windows ``conv_x``,
+    ``conv_B``, ``conv_C`` ``[nb, n_ssm, I, M, cw-1, din | ns | ns]`` in
+    ``dtype`` (never quantized) and ``ssm_state`` ``[nb, n_ssm, I, M, nh,
+    hd, ns]`` float32.  An attention-free model has no pools."""
     check_supported(cfg)
     check_dims(dims)
     dev = resolve_device(device)
-    nb = cfg.num_blocks
-    n_attn = sum(1 for k in cfg.block_pattern() if k["mixer"] == "attn")
-    _, _, ps = attn_tp_geometry(cfg, dims.tp)
-    kg = kv_group_size(cfg, dims.tp)
-    fp = -(-(dims.num_frames - 1) // ps) + 1     # frames/stripe + scratch
-    width = (cfg.kv_lora_rank + cfg.qk_rope_head_dim if cfg.is_mla
-             else kg * cfg.head_dim_)
-    shape = (nb, n_attn, num_instances, dims.tp, fp, dims.page, width)
-    pools = ("kv_pool",) if cfg.is_mla else ("k_pool", "v_pool")
-    scales = ("kv_scale",) if cfg.is_mla else ("k_scale", "v_scale")
-    if not quant.is_quantized(dims.kv_dtype):
-        return {k: torch.zeros(shape, dtype=dtype, device=dev) for k in pools}
-    pdt = quant.kv_storage_dtype(dims.kv_dtype, dtype)
-    state = {k: torch.zeros(shape, dtype=pdt, device=dev) for k in pools}
-    state.update({k: torch.ones(shape[:5], dtype=torch.float32, device=dev)
-                  for k in scales})
+    nb, I = cfg.num_blocks, num_instances
+    pattern = cfg.block_pattern()
+    n_attn = sum(1 for k in pattern if k["mixer"] == "attn")
+    n_ssm = len(pattern) - n_attn
+    state = {}
+    if n_attn:
+        _, _, ps = attn_tp_geometry(cfg, dims.tp)
+        kg = kv_group_size(cfg, dims.tp)
+        fp = -(-(dims.num_frames - 1) // ps) + 1     # frames/stripe + scratch
+        width = (cfg.kv_lora_rank + cfg.qk_rope_head_dim if cfg.is_mla
+                 else kg * cfg.head_dim_)
+        shape = (nb, n_attn, I, dims.tp, fp, dims.page, width)
+        pools = ("kv_pool",) if cfg.is_mla else ("k_pool", "v_pool")
+        scales = ("kv_scale",) if cfg.is_mla else ("k_scale", "v_scale")
+        pdt = quant.kv_storage_dtype(dims.kv_dtype, dtype)
+        state = {k: torch.zeros(shape, dtype=pdt, device=dev) for k in pools}
+        if quant.is_quantized(dims.kv_dtype):
+            state.update({k: torch.ones(shape[:5], dtype=torch.float32,
+                                        device=dev) for k in scales})
+    if n_ssm:
+        din, ns = cfg.ssm_d_inner, cfg.ssm_state
+        lead = (nb, n_ssm, I, dims.M, cfg.ssm_conv_width - 1)
+        for name, width in zip(SSM_STATE, (din, ns, ns)):
+            state[name] = torch.zeros(lead + (width,), dtype=dtype, device=dev)
+        state["ssm_state"] = torch.zeros(
+            (nb, n_ssm, I, dims.M, cfg.ssm_num_heads, cfg.ssm_head_dim, ns),
+            dtype=torch.float32, device=dev)
     return state
 
 
@@ -605,6 +659,51 @@ def _mla_layer(cfg: ModelConfig, dims: DecodeDims, lp: dict, x, pools,
     return torch.bmm(_to_rows(o, tp), mx["wo"]).sum(dim=0)      # psum over tp
 
 
+def _ssm_layer(cfg: ModelConfig, dims: DecodeDims, lp: dict, x, sstate):
+    """One SSD decode layer for every device (heads TP over the virtual
+    devices, B and C replicated).  x: [I*M, D]; sstate = (conv_x, conv_B,
+    conv_C, ssm_state), this layer's [I, M, ...] views of the serve state,
+    updated IN PLACE.  Returns the layer output [I*M, D] after the psum."""
+    I, tp, M = dims.data_size, dims.tp, dims.M
+    din, hd = cfg.ssm_d_inner, cfg.ssm_head_dim
+    mx = lp["mixer"]
+    conv_x, conv_B, conv_C, h_state = sstate
+    h = L.apply_norm(cfg, lp["ln1"], x)
+    z = h @ mx["wz"]                          # [I*M, din]: din/tp per device
+    dt = h @ mx["wdt"]                        # [I*M, nh]: nh/tp per device
+
+    def conv1(state, new, w, b):
+        """Depthwise conv over the window [state | new]; the window's last
+        cw-1 rows become the state."""
+        win = torch.cat([state.reshape(I * M, *state.shape[2:]),
+                         new[:, None, :]], dim=1)               # [I*M, cw, c]
+        out = torch.einsum("mwc,wc->mc", win.float(), w.float()) + b
+        state.copy_(win[:, 1:].reshape(state.shape))
+        return F.silu(out).to(new.dtype)
+
+    xin = conv1(conv_x, h @ mx["wx"], mx["conv_x"], mx["convb_x"])
+    Bm = conv1(conv_B, h @ mx["wB"], mx["conv_B"], mx["convb_B"]).float()
+    Cm = conv1(conv_C, h @ mx["wC"], mx["conv_C"], mx["convb_C"]).float()
+
+    dtp = F.softplus(dt.float() + mx["dt_bias"])
+    A = -torch.exp(mx["A_log"])
+    xh = xin.reshape(I * M, -1, hd).float()
+    decay = torch.exp(dtp * A)
+    upd = torch.einsum("ms,mh,mhd->mhds", Bm, dtp, xh)
+    h_new = h_state.reshape(I * M, *h_state.shape[2:]) * decay[..., None, None]
+    h_new = h_new + upd
+    h_state.copy_(h_new.reshape(h_state.shape))
+    y = torch.einsum("ms,mhds->mhd", Cm, h_new)
+    y = (y + xh * mx["D"][None, :, None]).reshape(I * M, din).to(x.dtype)
+    # gated RMSNorm over the FULL d_inner: each device's sum of squares over
+    # its din/tp channels, summed over tp (the reference's psum)
+    g = (y * F.silu(z)).float().reshape(I * M, tp, din // tp)
+    ss = g.square().sum(dim=-1, keepdim=True).sum(dim=1, keepdim=True)
+    g = g * torch.rsqrt(ss / din + 1e-6) * mx["norm"].reshape(tp, din // tp)
+    rows = g.to(x.dtype).transpose(0, 1)                 # [tp, I*M, din/tp]
+    return torch.bmm(rows, mx["out_proj"]).sum(dim=0)    # psum over tp
+
+
 def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
     """Returns ``step(params, state, tables) -> (state, next_tokens [I, M],
     logits [I, M, Vp])`` over the whole virtual mesh.
@@ -622,7 +721,7 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
                          f"{dims.data_size} instances")
     geom = attn_tp_geometry(cfg, dims.tp)
     I, M, tp = dims.data_size, dims.M, dims.tp
-    layer = _mla_layer if cfg.is_mla else _attn_layer
+    attn_layer = _mla_layer if cfg.is_mla else _attn_layer
     names = (("kv_pool", None, "kv_scale", None) if cfg.is_mla
              else ("k_pool", "v_pool", "k_scale", "v_scale"))
 
@@ -633,11 +732,19 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
         x = _embed_lookup(emb, tokens, tp).to(emb.dtype).reshape(I * M, -1)
         for bi in range(cfg.num_blocks):
             bp = block_slice(params["blocks"], bi)
+            ai = si = 0               # attention / SSM ordinal in the block
             for li, kind in enumerate(pattern):
                 lp = bp["layers"][li]
-                pools = tuple(None if n is None or n not in state
-                              else state[n][bi, li] for n in names)
-                x = x + layer(cfg, dims, lp, x, pools, tbl, geom)
+                if kind["mixer"] == "attn":
+                    pools = tuple(None if n is None or n not in state
+                                  else state[n][bi, ai] for n in names)
+                    x = x + attn_layer(cfg, dims, lp, x, pools, tbl, geom)
+                    ai += 1
+                else:
+                    x = x + _ssm_layer(cfg, dims, lp, x,
+                                       tuple(state[n][bi, si]
+                                             for n in SSM_STATE))
+                    si += 1
                 if kind["ffn"] == "none":
                     continue
                 h = L.apply_norm(cfg, lp["ln2"], x)

@@ -1,6 +1,6 @@
 """KV-cache migration: prefill output -> DCP-placed pool frames (§3 (2)-(3)),
 port of ``repro/core/migrate.py`` (GQA pools and MLA's latent pool,
-unquantized or fp8/int8).
+unquantized or fp8/int8; SSM layers' per-slot state).
 
 Token->shard assignment is contiguous ranges in sorted binding order
 (decode attention + LSE merge are order-agnostic over the prefix, so any
@@ -14,7 +14,8 @@ Two implementations:
     device from the prefill forward) is written into the pools IN PLACE by
     one indexed assignment per state kind, driven by small int32
     coordinate tensors; every request admitted in one scheduler step
-    batches into one call.
+    batches into one call.  SSM layers' final prefill state goes to the
+    request's decode slot (``load_prefill_ssm`` / ``scatter_ssm``).
 
 ``KVReshard`` moves RESIDENT KV between pool coordinates (the live re-shard
 behind escalation and relaxation); the reference's main path relaxes (it
@@ -26,8 +27,7 @@ Quantized pools move with their per-page scales under the offset-0 rule
 dequantizes with the source scales and requantizes against the
 destination's.
 
-Not ported yet: SSM states (ROADMAP queue 1 item 11) and whisper cross/self
-KV (item 12).
+Not ported yet: whisper cross/self KV (ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -100,6 +100,24 @@ def load_prefill_kv(cfg: ModelConfig, cluster: ClusterState, dims: DecodeDims,
                     grp = slice(h * kg, (h + 1) * kg)
                     kp[bi, pos, s, c, f // ps, o] = k[start + j, grp].reshape(-1)
                     vp[bi, pos, s, c, f // ps, o] = v[start + j, grp].reshape(-1)
+
+
+def load_prefill_ssm(cfg: ModelConfig, state_np: dict, instance: int,
+                     slot: int, ssm_layers) -> None:
+    """Write one request's final prefill SSM states into its decode slot.
+
+    ssm_layers: per SSM layer, block-major, (conv_state [cw-1, conv_dim],
+    h [nh, hd, ns]).
+    """
+    din, ns = cfg.ssm_d_inner, cfg.ssm_state
+    per_block = sum(1 for k in cfg.block_pattern() if k["mixer"] == "ssm")
+    for si, (conv, h) in enumerate(ssm_layers):
+        bi, pos = si // per_block, si % per_block
+        conv = np.asarray(conv, np.float32)
+        state_np["conv_x"][bi, pos, instance, slot] = conv[:, :din]
+        state_np["conv_B"][bi, pos, instance, slot] = conv[:, din:din + ns]
+        state_np["conv_C"][bi, pos, instance, slot] = conv[:, din + ns:]
+        state_np["ssm_state"][bi, pos, instance, slot] = np.asarray(h, np.float32)
 
 
 def prefill_coords(cluster: ClusterState, rid: int, page: int,
@@ -190,6 +208,22 @@ class PrefillScatter:
                 self.quantized_write(pool, state[skey], x, (ii, c, ff), off)
             else:
                 pool[:, :, ii, c, ff, oo] = x.to(pool.dtype)
+        return state
+
+    def scatter_ssm(self, state: dict, conv: torch.Tensor, h: torch.Tensor,
+                    inst_slot: np.ndarray) -> dict:
+        """conv: [nb, n_ssm, R, cw-1, conv_dim], h: [nb, n_ssm, R, nh, hd, ns]
+        device tensors, one row per request; inst_slot int [2, R] (instance,
+        decode slot) per request.  Writes in place into the conv windows
+        (split into their x, B and C parts) and the SSM state; returns
+        ``state``."""
+        din, ns = self.cfg.ssm_d_inner, self.cfg.ssm_state
+        ix = torch.as_tensor(np.asarray(inst_slot, np.int64), device=h.device)
+        inst, slot = ix[0], ix[1]
+        for name, part in zip(("conv_x", "conv_B", "conv_C"),
+                              torch.split(conv, [din, ns, ns], dim=-1)):
+            state[name][:, :, inst, slot] = part.to(state[name].dtype)
+        state["ssm_state"][:, :, inst, slot] = h.to(state["ssm_state"].dtype)
         return state
 
 

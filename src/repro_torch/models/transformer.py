@@ -1,11 +1,14 @@
-"""Decoder-only trunk: init + prefill forward for the dense GQA, MLA and
-MoE families (port of ``repro/models/transformer.py``).
+"""Decoder-only trunk: init + prefill forward for the dense GQA, MLA, MoE,
+SSM (Mamba-2) and hybrid (Jamba) families (port of
+``repro/models/transformer.py``).
 
 The trunk is ``cfg.num_blocks`` repeats of a ``cfg.block_period``-layer
 block pattern; block parameters are stacked on a leading axis (the JAX
 package's ``params["blocks"]`` layout, which it ``lax.scan``s) and the
-forward loops over them.  SSM and encoder-decoder families raise
-``NotImplementedError`` (ROADMAP queue 1 items 11-12).
+forward loops over them.  A layer's mixer is attention or an SSD block
+(``kind["mixer"]``); its FFN is dense, MoE or, for Mamba-2, absent.  The
+encoder-decoder family raises ``NotImplementedError`` (ROADMAP queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -15,15 +18,12 @@ from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from . import attention as attn_mod
-from . import layers, mla, moe
+from . import layers, mla, moe, ssm
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves every decoder-only attention family: dense GQA (with
-    qkv bias or qk-norm), MLA and MoE."""
-    if cfg.family in ("ssm", "hybrid") or not cfg.has_attention:
-        raise NotImplementedError("SSM/hybrid models are not ported yet "
-                                  "(ROADMAP queue 1 item 11)")
+    """The port serves every decoder-only family: dense GQA (with qkv bias
+    or qk-norm), MLA, MoE, SSM and the SSM/attention hybrid."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError("encoder-decoder models are not ported yet "
                                   "(ROADMAP queue 1 item 12)")
@@ -45,15 +45,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     gen = torch.Generator(device=dev).manual_seed(seed)
     kw = {"dtype": dtype, "device": dev}
 
-    make_mixer = mla.make_mla_params if cfg.is_mla else attn_mod.make_attn_params
+    make_attn = mla.make_mla_params if cfg.is_mla else attn_mod.make_attn_params
 
     def layer_params(kind):
-        make_ffn = (moe.make_moe_params if kind["ffn"] == "moe"
-                    else layers.make_mlp_params)
-        return {"ln1": layers.make_norm_params(cfg, cfg.d_model, dev),
-                "mixer": make_mixer(gen, cfg, **kw),
-                "ln2": layers.make_norm_params(cfg, cfg.d_model, dev),
-                "ffn": make_ffn(gen, cfg, **kw)}
+        make_mixer = make_attn if kind["mixer"] == "attn" else ssm.make_ssm_params
+        p = {"ln1": layers.make_norm_params(cfg, cfg.d_model, dev),
+             "mixer": make_mixer(gen, cfg, **kw)}
+        if kind["ffn"] != "none":
+            make_ffn = (moe.make_moe_params if kind["ffn"] == "moe"
+                        else layers.make_mlp_params)
+            p["ln2"] = layers.make_norm_params(cfg, cfg.d_model, dev)
+            p["ffn"] = make_ffn(gen, cfg, **kw)
+        return p
 
     # each block is written into preallocated stacked leaves as soon as it
     # is made: the peak is the stack plus one block, never two stacks (and
@@ -109,14 +112,20 @@ def block_slice(tree, i: int):
 # --------------------------------------------------------------------------- #
 def apply_layer(cfg: ModelConfig, kind: dict, lp: dict, x: torch.Tensor,
                 positions: torch.Tensor, collect_kv: bool):
-    """One layer: pre-norm attention + pre-norm FFN with residuals.
+    """One layer: pre-norm mixer (attention or SSD) + pre-norm FFN with
+    residuals.
 
-    Returns (x, aux) where aux holds the prefill cache material: (k, v), or
-    MLA's latent (c_kv, k_rope).
+    Returns (x, aux) where aux holds the prefill cache material: (k, v),
+    MLA's latent (c_kv, k_rope), or an SSD layer's (conv_state, ssm_state).
     """
     aux = {}
     h = layers.apply_norm(cfg, lp["ln1"], x)
-    if cfg.is_mla:
+    if kind["mixer"] == "ssm":
+        mix, states = ssm.ssm_block(cfg, lp["mixer"], h)
+        if collect_kv:
+            aux["ssm"] = states
+        x = x + mix
+    elif cfg.is_mla:
         lat = mla.mla_latent(cfg, lp["mixer"], h, positions)
         if collect_kv:
             aux["kv"] = lat
@@ -129,6 +138,8 @@ def apply_layer(cfg: ModelConfig, kind: dict, lp: dict, x: torch.Tensor,
         o = ops.attention(q, k, v, causal=True)
         B, S = h.shape[:2]
         x = x + o.reshape(B, S, -1) @ lp["mixer"]["wo"]
+    if kind["ffn"] == "none":
+        return x, aux
     h = layers.apply_norm(cfg, lp["ln2"], x)
     if kind["ffn"] == "moe":
         x = x + moe.moe_ffn_batched(cfg, lp["ffn"], h)
@@ -144,9 +155,10 @@ def forward(cfg: ModelConfig, params: dict, tokens, *,
 
     ``caches`` (with ``collect_kv``) is a list over the block pattern of
     ``{"kv": (k, v)}`` with k/v stacked over blocks: [nb, B, S, Hkv, hd]
-    (MLA: (c_kv [nb, B, S, kvr], k_rope [nb, B, S, dr])), as the JAX scan
-    stacks them; otherwise None.  ``params`` must live on
-    ``device``; the tokens are moved there.
+    (MLA: (c_kv [nb, B, S, kvr], k_rope [nb, B, S, dr])), or for an SSD
+    layer ``{"ssm": (conv_state [nb, B, W-1, conv_dim], ssm_state
+    [nb, B, nh, hd, ns])}``, as the JAX scan stacks them; otherwise None.
+    ``params`` must live on ``device``; the tokens are moved there.
     """
     check_supported(cfg)
     tokens = torch.as_tensor(tokens, device=resolve_device(device))
@@ -166,7 +178,8 @@ def forward(cfg: ModelConfig, params: dict, tokens, *,
     logits = layers.apply_head(cfg, params["head"], params["embed"], x)
     if not collect_kv:
         return logits, None
-    caches = [{"kv": tuple(torch.stack([a["kv"][j] for a in per_layer])
-                           for j in range(2))}
+    caches = [{name: tuple(torch.stack([a[name][j] for a in per_layer])
+                           for j in range(2))
+               for name in per_layer[0]}
               for per_layer in auxes]
     return logits, caches

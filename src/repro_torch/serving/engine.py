@@ -73,8 +73,18 @@ chunked prefill, each chunk a causal forward over ``[0, end)`` whose rows
 ``[end - chunk_tokens, end)`` scatter straight into the decode
 destinations).  Every such write lands in place in the captured pools.
 
+SSM and hybrid models (Mamba-2, Jamba): each request's SSM state lives in
+its decode slot, written by the prefill (``PrefillScatter.scatter_ssm``)
+and advanced in place by every step.  The slot is pinned: one fixed M
+bucket, no MoE-binding rebalance, and ``drain_instance`` refuses with
+``UnsupportedDrainError``, leaving the cluster untouched.  A crash that
+loses a request's slot finishes it degraded; Jamba KV lost elsewhere is
+re-prefilled (its KV only).  Mamba-2 has no KV: no appends, no escalation,
+no pools.  The prefix cache and prefill cells need KV appends, and
+``fork_request`` a slot that can move, as in the reference.
+
 Not ported yet, raising ``NotImplementedError`` where the reference would
-act: SSM and encoder-decoder models (items 11-12).
+act: encoder-decoder models (item 12).
 """
 from __future__ import annotations
 
@@ -136,6 +146,14 @@ class _Inflight:
     logits: object = None
 
 
+class UnsupportedDrainError(RuntimeError):
+    """``drain_instance`` on an arch whose per-slot device state (the SSM
+    recurrent state) cannot move with the slot: a graceful drain would
+    corrupt it, so the engine refuses and leaves the cluster untouched.
+    ``fail_instance`` (crash semantics: the affected requests degrade)
+    stays available."""
+
+
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet "
                                f"(ROADMAP queue 1 item {item})")
@@ -167,9 +185,24 @@ class NanoCPEngine:
         scheduler.  ``prefix_cache``: the global CoW prefix cache.
         ``prefill_cells``: that many tail instances run chunked prefill
         only, in chunks of ``chunk_tokens`` (a positive page multiple,
-        default four pages)."""
+        default four pages).  SSM and hybrid models pin their slots: the
+        step takes the one M bucket ``max_slots_per_instance`` unless
+        ``shape_buckets`` says otherwise."""
         transformer.check_supported(cfg)
         quant.check_kv_dtype(kv_dtype)
+        # decode appends KV only where there is attention; per-slot SSM
+        # state pins the slot dimension of the serve state
+        self._append_tokens = cfg.has_attention
+        self._pinned_slots = cfg.family in ("ssm", "hybrid")
+        if quant.is_quantized(kv_dtype) and not cfg.has_attention:
+            raise ValueError("quantized KV pools need an attention pool; "
+                             f"{cfg.name} has none")
+        if prefix_cache and not self._append_tokens:
+            raise ValueError("prefix_cache needs an attention arch")
+        if prefill_cells and not (self._append_tokens
+                                  and not self._pinned_slots):
+            raise ValueError("prefill cells need a decoder-only attention "
+                             "arch without pinned per-slot state")
         self.chunk_tokens = chunk_tokens or 4 * page_size
         if self.chunk_tokens <= 0 or self.chunk_tokens % page_size:
             raise ValueError(f"chunk_tokens must be a positive page multiple "
@@ -193,11 +226,17 @@ class NanoCPEngine:
                                     page_size=page_size, kv_stripes=ps,
                                     prefill_cells=prefill_cells)
         self.scheduler = scheduler or DualBalancedScheduler(
-            buckets=buckets, allow_rebalance=True,
-            max_batch_per_instance=max_slots_per_instance, has_kv=True,
+            buckets=buckets, allow_rebalance=not self._pinned_slots,
+            max_batch_per_instance=max_slots_per_instance,
+            has_kv=cfg.has_attention,
             # one decode page of growth headroom on every MoE binding at
             # admission so the first appended tokens never spill
-            kv_reserve=page_size, allow_escalation=True)
+            kv_reserve=page_size if self._append_tokens else 0,
+            allow_escalation=self._append_tokens)
+        if not self._append_tokens:
+            # nothing grows without KV appends: a caller's scheduler must
+            # not escalate either
+            self.scheduler.allow_escalation = False
         if admission is not None:
             self.scheduler.admission = admission
         self.prefix_trie = PrefixTrie(page_size) if prefix_cache else None
@@ -212,6 +251,9 @@ class NanoCPEngine:
                             or CPBuckets(edges=(), degrees=(1,)))
         # the data plane's rotation window is the CLUSTER ring
         ring = self.cluster.window
+        if shape_buckets is None and self._pinned_slots:
+            shape_buckets = ShapeBuckets(m_buckets=(max_slots_per_instance,),
+                                         window=ring)
         self.shape_buckets = shape_buckets or ShapeBuckets(window=ring)
         self.params = params
         self._dims0 = dcp.DecodeDims(
@@ -340,9 +382,10 @@ class NanoCPEngine:
         """A prefill forward's KV at positions ``sel`` (a slice or an index
         tensor) in the scatter's layout: k and v as [nb, na, T, khs, kg*hd]
         (the Hkv heads in khs groups of kg), or MLA's latent as
-        [nb, na, T, 1, kvr + dr] with v None."""
-        a = torch.stack([c["kv"][0][:, 0] for c in caches], dim=1)[:, :, sel]
-        b = torch.stack([c["kv"][1][:, 0] for c in caches], dim=1)[:, :, sel]
+        [nb, na, T, 1, kvr + dr] with v None.  SSM layers are skipped."""
+        kv = [c["kv"] for c in caches if "kv" in c]
+        a = torch.stack([k[:, 0] for k, _ in kv], dim=1)[:, :, sel]
+        b = torch.stack([v[:, 0] for _, v in kv], dim=1)[:, :, sel]
         if self.cfg.is_mla:
             return torch.cat([a, b], dim=-1)[..., None, :], None
         khs = self._scatter.khs
@@ -369,6 +412,7 @@ class NanoCPEngine:
         ps = self._scatter.ps
         page = self._dims0.page
         rows, coords, firsts = [], [], []
+        convs, hs, slots = [], [], []
         for req in reqs:
             hit = req.prefix_hit_tokens
             toks = torch.as_tensor(self._prompts[req.rid],
@@ -377,11 +421,23 @@ class NanoCPEngine:
                                                  collect_kv=True,
                                                  device=self.device)
             firsts.append(logits[0, -1].argmax())
-            rows.append(self._pool_rows(caches, slice(hit, None)))
-            coords.append(self._prompt_coords(req, hit, page, ps))
+            if self.cfg.has_attention:
+                rows.append(self._pool_rows(caches, slice(hit, None)))
+                coords.append(self._prompt_coords(req, hit, page, ps))
+            ssm_caches = [c["ssm"] for c in caches if "ssm" in c]
+            if ssm_caches:
+                # [nb, n_ssm, 1, ...]: this request's final SSM states
+                convs.append(torch.stack([c for c, _ in ssm_caches], dim=1))
+                hs.append(torch.stack([h for _, h in ssm_caches], dim=1))
+                slots.append(self.cluster.slot_map[req.rid])
         eos_done = self._record_first_tokens(
             reqs, torch.stack(firsts).tolist(), now)
-        self._scatter_rows(rows, coords)
+        if rows:
+            self._scatter_rows(rows, coords)
+        if convs:
+            self._scatter.scatter_ssm(self.state, torch.cat(convs, dim=2),
+                                      torch.cat(hs, dim=2),
+                                      np.asarray(slots, np.int64).T)
         self._register_prefixes(reqs)
         return self._finish_prefill_eos(eos_done, now)
 
@@ -668,7 +724,11 @@ class NanoCPEngine:
 
         Draining a prefill cell is the crash path with no data lost: its
         frames are placeholders (streamed KV already lives on decode
-        instances), so its queued tails re-stage on surviving cells."""
+        instances), so its queued tails re-stage on surviving cells.
+
+        Raises ``UnsupportedDrainError``, the cluster untouched, where
+        per-slot SSM state pins the slots (or the scheduler may not
+        rebalance): the MoE binding cannot move without its state."""
         if self.cluster.role_of(instance) == "prefill":
             records = self.cluster.fail_instance(instance)
             if self.prefix_trie is not None:
@@ -676,6 +736,12 @@ class NanoCPEngine:
             self._recover(records, self._now())
             self.hot_path_stats["drains"] += 1
             return []
+        if not (self._append_tokens
+                and getattr(self.scheduler, "allow_rebalance", True)):
+            raise UnsupportedDrainError(
+                f"drain_instance({instance}): {self.cfg.name} pins per-slot "
+                "SSM state, so the MoE binding cannot move without a slot "
+                "state migration (fail_instance gives crash semantics)")
         # cache holds on the leaver go first: cache-only frames free at
         # once, frames shared with live requests become theirs and move
         # with them (not rolled back on a failed drain: losing a cache
@@ -751,7 +817,7 @@ class NanoCPEngine:
                     if (req.moe_binding >= 0 and req.moe_binding != instance
                             and req.moe_binding not in cl.dead_instances):
                         cl.move_slot(rid, req.moe_binding)
-                else:
+                elif self._append_tokens:
                     # un-append this step's input token (i is the
                     # dispatch-time MoE shard)
                     cl.page_table.pop_token(rid, i)
@@ -790,8 +856,12 @@ class NanoCPEngine:
                 # from a dispatch-time finish): the whole context is lost
                 ranges = [(0, req.prompt_len + req.generated)]
             lost = sum(n for _, n in ranges)
+            # lost KV is re-prefilled, but never when pinned per-slot SSM
+            # state died with the slot (nor without KV at all)
+            recoverable = (self._append_tokens
+                           and not (rec.slot_lost and self._pinned_slots))
             split = None
-            ok = req.moe_binding >= 0
+            ok = req.moe_binding >= 0 and (lost == 0 or recoverable)
             if ok and lost > 0:
                 split = self.scheduler.place_recovery(cl, req, lost, ledger)
                 ok = split is not None
@@ -893,7 +963,9 @@ class NanoCPEngine:
         one forced cluster-wide relaxation pass (de-escalate bindings wider
         than their bucket degree, consolidate tail pages back onto the MoE
         binding; the cooldown is overridden, the headroom guard band is
-        not), with the live re-shard applied now."""
+        not), with the live re-shard applied now.  Needs KV to move."""
+        if not self._append_tokens:
+            raise ValueError("compact needs an attention arch")
         records = self.scheduler.relax(self.cluster, force=True)
         self._apply_escalations(records)
         self.hot_path_stats["compacts"] += 1
@@ -913,7 +985,12 @@ class NanoCPEngine:
         yet fed to a forward), in its transcript too, so ``prompt +
         tokens`` is always the sequence the child processes; by default it
         is the parent's.  ``max_new_tokens`` counts the child's emitted
-        tokens, the inherited ones included.  Returns the child's rid."""
+        tokens, the inherited ones included.  Returns the child's rid.
+        Needs a decoder-only attention arch whose slots can move (no SSM
+        state)."""
+        if not self._append_tokens or self._pinned_slots:
+            raise ValueError(f"fork_request: {self.cfg.name} has per-slot "
+                             "state or no KV to share")
         now = self._now() if now is None else now
         if self._inflight is not None:
             self._harvest(now)
@@ -1076,10 +1153,11 @@ class NanoCPEngine:
         attempts = len(self.cluster.active) + 1
         while True:
             try:
-                self._cow_appends()
+                if self._append_tokens:
+                    self._cow_appends()
                 tbl = routing.lower_plan(self.cluster, plan,
                                          buckets=self.shape_buckets,
-                                         append_tokens=True,
+                                         append_tokens=self._append_tokens,
                                          next_tokens=self.next_tok,
                                          arena=self._arena)
                 break

@@ -4,7 +4,8 @@ and the properties one CUDA graph per bucket relies on, checked without a
 card:
 
   * the decode step is capturable: no op waits on the device or sizes its
-    output by values (``NoHostSync``), for every decoder-only variant;
+    output by values (``NoHostSync``), for every decoder-only variant, SSM
+    and hybrid included;
   * the static-buffer contract: a step on the engine's own table buffers
     and state tensors, refilled in place, equals a step on fresh tensors;
   * the elastic-join prewarm leaves the pools bit-equal;
@@ -114,22 +115,24 @@ CAPTURE_CASES = {
     "dense": ("tinyllama-1.1b", {}, {"backend": "dense"}),
     "fp8": ("tinyllama-1.1b", {}, {"kv_dtype": "fp8"}),
     "minicpm3-fp8": ("minicpm3-4b", {}, {"kv_dtype": "fp8"}),
+    "mamba2": ("mamba2-370m", {}, {}),
+    "jamba": ("jamba-v0.1-52b", MOE_OVER, {}),
 }
 
 
 def _small_engine(arch, over, kw, pipeline=True):
     """(2, 2), a prompt past the CP edge (degree 2: rows route over the
     ring) and a short one, after one step (admission + the first decode
-    dispatch)."""
+    dispatch).  SSM models keep the engine's one pinned M bucket."""
     cfg = reduced(CONFIGS[arch], vocab_size=256, **over)
     params = transformer.init_params(cfg, seed=0, device="cpu",
                                      dtype=torch.float32)
     eng = NanoCPEngine(cfg, params, num_instances=2, instances_per_node=2,
                        kv_capacity_tokens=1024, page_size=16, tp=2,
                        buckets=CPBuckets(edges=(48,), degrees=(1, 2)),
-                       shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4),
-                                                  s_buckets=(0, 1, 2, 4),
-                                                  window=2),
+                       shape_buckets=None if cfg.family in ("ssm", "hybrid")
+                       else ShapeBuckets(m_buckets=(1, 2, 4),
+                                         s_buckets=(0, 1, 2, 4), window=2),
                        max_slots_per_instance=4, pipeline=pipeline,
                        device="cpu", **kw)
     rng = np.random.default_rng(0)
@@ -142,11 +145,13 @@ def _small_engine(arch, over, kw, pipeline=True):
 @pytest.mark.parametrize("case", list(CAPTURE_CASES))
 def test_decode_step_is_capturable(case):
     """One decode step of the engine's last bucket, on the tensors its
-    graph would capture, runs under ``NoHostSync`` without raising."""
+    graph would capture, runs under ``NoHostSync`` without raising (an
+    attention-free model routes no rows)."""
     arch, over, kw = CAPTURE_CASES[case]
     eng = _small_engine(arch, over, kw)
     key = eng.last_bucket
-    assert key[1] > 0 and eng.last_rounds_used > 0, key    # rows route
+    routes = key[1] > 0 and eng.last_rounds_used > 0
+    assert routes == eng.cfg.has_attention, key
     fn, shapes = eng._build_step(key)
     params, state, tables = eng._graph_inputs(shapes)
     with torch.no_grad(), NoHostSync():
@@ -162,7 +167,7 @@ def test_decode_step_is_capturable(case):
 # --------------------------------------------------------------------------- #
 # (c) the static-buffer contract
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("case", ["tinyllama", "minicpm3-fp8"])
+@pytest.mark.parametrize("case", ["tinyllama", "minicpm3-fp8", "jamba"])
 def test_step_on_refilled_buffers_equals_fresh_tensors(case):
     """A graph replays on the same table buffers and state tensors with new
     contents.  From the same pools and tables, the step on the engine's

@@ -1,6 +1,6 @@
 """Fault tolerance and elasticity of the port's engine on the CPU, held
 against the JAX package: ports of the reference's ``engine_chaos.py``
-cells (kill, killnode, degraded, join, drainforce), its
+cells (kill, killnode, degraded, join, drainforce, refusal), its
 ``engine_fault.py`` drain cell and the ``engine_multinode.py`` cells
 place, escalate and conform.
 
@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import CONFIGS as JCONFIGS, reduced as jreduced
 from repro.models import init_params as jinit, transformer as jtransformer
@@ -28,11 +29,23 @@ from repro_torch.core.bucketing import CPBuckets, ShapeBuckets
 from repro_torch.core.comm import node_local_rounds
 from repro_torch.serving.chaos import (JOIN, KILL, ChaosEvent, ChaosSchedule,
                                        run_engine_with_chaos)
-from repro_torch.serving.engine import NanoCPEngine
+from repro_torch.serving.engine import NanoCPEngine, UnsupportedDrainError
 
 VOCAB = 256
 ARCH = "tinyllama-1.1b"
 MLA = "minicpm3-4b"
+SSM = "mamba2-370m"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _first_parallel_exp():
+    """A CPU build of torch (2.13.0+cpu) can return wrong values from the
+    first multithreaded ``torch.exp`` of a process (seen as a 1e-4 relative
+    error in the SSD scan's decay matrix in about one process in five,
+    never after one earlier call; no other op showed it).  One call before
+    the module's tests keeps that fault of the library out of the
+    comparisons."""
+    torch.exp(torch.zeros(1 << 16))
 
 
 @functools.cache
@@ -65,8 +78,10 @@ def _engine(cfg, params, I, W, tp, cap, edges, degrees, pipeline=True):
         cfg, params, num_instances=I, instances_per_node=W, tp=tp,
         kv_capacity_tokens=cap, page_size=16,
         buckets=CPBuckets(edges=edges, degrees=degrees),
-        shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4), s_buckets=(0, 1, 2, 4),
-                                   window=I),
+        # SSM models keep the engine's one pinned M bucket
+        shape_buckets=None if cfg.family in ("ssm", "hybrid")
+        else ShapeBuckets(m_buckets=(1, 2, 4), s_buckets=(0, 1, 2, 4),
+                          window=I),
         max_slots_per_instance=4, pipeline=pipeline,
         audit_donation_every_step=True, device="cpu")
 
@@ -123,7 +138,7 @@ def _check_end(models, eng, prompts, reqs, ptrs, degraded_ok=()):
 
 
 # --------------------------------------------------------------------------- #
-# engine_chaos.py: kill, killnode, degraded, join, drainforce
+# engine_chaos.py: kill, killnode, degraded, join, drainforce, refusal
 # --------------------------------------------------------------------------- #
 # mode: (I, W_node, tp, cap, edges, degrees, [(prompt, max_new), ...])
 CHAOS = {
@@ -135,6 +150,7 @@ CHAOS = {
     "join":       (8, 4, 1, 128, (100_000,), (1, 2),
                    [(420, 40), (16, 4), (24, 64)]),
     "drainforce": (2, 2, 2, 256, (100_000,), (1, 2), [(330, 24), (48, 24)]),
+    "refusal":    (2, 2, 2, 4096, (100_000,), (1, 1), [(24, 8), (48, 8)]),
 }
 
 
@@ -142,11 +158,13 @@ CHAOS = {
                          [("kill", True, ARCH), ("kill", False, ARCH),
                           ("kill", True, MLA), ("killnode", True, ARCH),
                           ("degraded", True, ARCH), ("degraded", False, ARCH),
-                          ("join", True, ARCH), ("drainforce", True, ARCH)],
+                          ("join", True, ARCH), ("drainforce", True, ARCH),
+                          ("refusal", True, SSM), ("refusal", False, SSM)],
                          ids=["kill-pipe", "kill-nopipe", "kill-mla-pipe",
                               "killnode-pipe", "degraded-pipe",
                               "degraded-nopipe", "join-pipe",
-                              "drainforce-pipe"],
+                              "drainforce-pipe", "refusal-pipe",
+                              "refusal-nopipe"],
                          indirect=["models"])
 def test_engine_chaos(models, mode, pipeline):
     """An instance fails (or joins, or is force-drained) in the mid-flight
@@ -156,7 +174,10 @@ def test_engine_chaos(models, mode, pipeline):
     ``drainforce``: the survivor lacks headroom, so the big request
     finishes degraded with a greedy prefix, the other exactly.  ``join``:
     the dead instance rejoins, load spreads back onto it and the steady
-    state returns to node-local rounds."""
+    state returns to node-local rounds.  ``refusal`` (attention-free
+    Mamba-2, whose SSM state is pinned to its slot): a drain raises
+    ``UnsupportedDrainError`` and changes nothing; a crash then degrades
+    only the requests whose slot it held."""
     _, _, cfg, params = models
     I, W, tp, cap, edges, degrees, reqs = CHAOS[mode]
     eng = _engine(cfg, params, I, W, tp, cap, edges, degrees, pipeline)
@@ -211,6 +232,30 @@ def test_engine_chaos(models, mode, pipeline):
         assert hp["degraded_finishes"] == 1, hp
         degraded_ok = (0,)
         _drain(eng, max_steps)
+
+    elif mode == "refusal":
+        def snapshot():
+            return (set(cl.dead_instances), dict(cl.slot_map),
+                    {r: (q.moe_binding, list(q.kv_binding))
+                     for r, q in cl.active.items()},
+                    cl.page_table.frame_audit(), dict(hp),
+                    {k: v.clone() for k, v in eng.state.items()})
+
+        before = snapshot()
+        with pytest.raises(UnsupportedDrainError, match="pins per-slot"):
+            eng.drain_instance(0)
+        after = snapshot()
+        assert after[:5] == before[:5], "a refused drain mutated the cluster"
+        assert all(torch.equal(after[5][k], v) for k, v in before[5].items())
+        victim = cl.active[0].moe_binding
+        on_victim = {r for r, (i, _) in cl.slot_map.items() if i == victim}
+        degraded = eng.fail_instance(victim)
+        assert {r.rid for r in degraded} == on_victim and 0 in on_victim
+        assert eng.results[0].recovered is False
+        degraded_ok = tuple(on_victim)
+        _drain(eng, max_steps)
+        assert hp["failures"] == 1, hp
+        assert hp["degraded_finishes"] == len(on_victim), hp
 
     else:                                        # join
         victim = cl.active[watched].moe_binding

@@ -1,6 +1,7 @@
 """The port's DCP decode step on its virtual mesh, held against the JAX
 package (a port of tests/integration/dcp_equivalence.py for the dense GQA,
-MLA and MoE archetypes, routed and dense backends, on the CPU).
+MLA, MoE, SSM and hybrid archetypes, routed and dense backends, on the
+CPU).
 
 Weights come from the JAX init (cast to float32) through
 ``repro_torch.params``; prompts are drawn with numpy.  Per-step tokens must
@@ -8,18 +9,24 @@ equal the argmax of JAX ``transformer.forward`` over the same sequence,
 and the step logits its logits within a relative 1e-4: checked
 teacher-forced, one JAX forward per request over prompt + the port's
 transcript, so the reference compiles once per request.  The prefill
-scatter must equal the port's numpy loader and
-``repro.core.migrate.load_prefill_kv`` bit for bit.
+scatter must equal the port's numpy loaders and
+``repro.core.migrate.load_prefill_kv`` / ``load_prefill_ssm`` bit for bit.
+SSM and hybrid models pin their slots, as the reference's harness does:
+one M bucket of 8 and no rebalance.
 
 MoE configs run at capacity factor 8.0, as the reference's own MoE tests
 do: no token is dropped, so decode (capacity per instance) and prefill
 (capacity per request) route alike.  The configs with qkv bias, qk-norm or
 DeepSeek-V3's MLA + MoE run with perturbed weights: every bias drawn from
 N(0, 0.5) and every norm scale from 1 + N(0, 0.3) before conversion (the
-JAX init makes them 0 and 1, where a dropped branch would not show).  At I >= 4 the reference's own MoE DCP
+JAX init makes them 0 and 1, where a dropped branch would not show).
+Mamba-2 and Jamba perturb their SSD vectors likewise: A_log and dt_bias
+shifted by N(0, 0.5), D and the gated norm's scale 1 + N(0, 0.3), the
+conv bias N(0, 0.5).  At I >= 4 the reference's own MoE DCP
 step diverges from its forward (ROADMAP queue 3), so the port is held
 against JAX's step only at I = 2.
 """
+import functools
 import os
 import subprocess
 import sys
@@ -45,28 +52,45 @@ from repro_torch.models import transformer
 
 PAGE = 16
 PROMPTS = {0: 50, 1: 130, 2: 40, 3: 260, 4: 64}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _first_parallel_exp():
+    """A CPU build of torch (2.13.0+cpu) can return wrong values from the
+    first multithreaded ``torch.exp`` of a process (seen as a 1e-4 relative
+    error in the SSD scan's decay matrix in about one process in five,
+    never after one earlier call; no other op showed it).  One call before
+    the module's tests keeps that fault of the library out of the
+    comparisons."""
+    torch.exp(torch.zeros(1 << 16))
 STEPS = 3
 MOE = "phi3.5-moe-42b-a6.6b"
 STEP_LOGIT_RTOL = 1e-4
 # configs whose weights are perturbed before conversion (module note)
-PERTURBED = ("qwen1.5-0.5b", "llama4-scout-17b-a16e", "deepseek-v3")
+PERTURBED = ("qwen1.5-0.5b", "llama4-scout-17b-a16e", "deepseek-v3",
+             "mamba2-370m", "jamba-v0.1-52b")
 
 
 def perturb(np_tree, seed: int = 0):
-    """numpy leaves with every q/k/v bias from N(0, 0.5) and every norm
-    scale (layer norms, q/k norms, MLA's latent norms) from 1 + N(0, 0.3)."""
+    """numpy leaves with every q/k/v bias (and SSD conv bias) from
+    N(0, 0.5), every norm scale (layer norms, q/k norms, MLA's latent
+    norms, the SSD gated norm) and SSD skip D from 1 + N(0, 0.3), and the
+    SSD A_log and dt_bias shifted by N(0, 0.5)."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, x):
         name = getattr(path[-1], "key", None)
-        if name in ("bq", "bk", "bv"):
+        if name in ("bq", "bk", "bv", "conv_b"):
             return rng.normal(0.0, 0.5, x.shape).astype(np.float32)
-        if name in ("scale", "q_norm", "k_norm", "kv_norm"):
+        if name in ("scale", "q_norm", "k_norm", "kv_norm", "norm", "D"):
             return (1.0 + rng.normal(0.0, 0.3, x.shape)).astype(np.float32)
+        if name in ("A_log", "dt_bias"):
+            return (x + rng.normal(0.0, 0.5, x.shape)).astype(np.float32)
         return x
     return jax.tree_util.tree_map_with_path(leaf, np_tree)
 
 
+@functools.cache
 def _models(kv=None, arch="tinyllama-1.1b"):
     over = {} if kv is None else {"num_kv_heads": kv}
     if JCONFIGS[arch].is_moe:
@@ -82,19 +106,35 @@ def _models(kv=None, arch="tinyllama-1.1b"):
     return jcfg, jparams, cfg, params
 
 
+@functools.cache
+def _jax_forward(jcfg):
+    """JAX's forward logits for ``jcfg``, jitted once per config (compiled
+    per sequence length)."""
+    return jax.jit(lambda p, t: jtransformer.forward(jcfg, p, t)[0])
+
+
+def _layers_of(caches, name):
+    """Per layer of kind ``name`` ("kv" or "ssm"), block-major, its two
+    cache tensors for request 0 as numpy: (k [len, Hkv, hd], v), MLA's
+    (c_kv [len, kvr], k_rope [len, dr]), or an SSD layer's (conv_state
+    [cw-1, conv_dim], ssm_state [nh, hd, ns])."""
+    per = [c[name] for c in caches if name in c]
+    nb = per[0][0].shape[0] if per else 0
+    return [(a[b, 0].numpy(), c[b, 0].numpy()) for b in range(nb)
+            for a, c in per]
+
+
 def _kv_layers(caches):
-    """Per attention layer (k [len, Hkv, hd], v) — MLA: (c_kv [len, kvr],
-    k_rope [len, dr]) — numpy, block-major."""
-    k, v = caches[0]["kv"]
-    return [(k[b, 0].numpy(), v[b, 0].numpy()) for b in range(k.shape[0])]
+    return _layers_of(caches, "kv")
 
 
 def _scatter_prefill(cfg, scatter, state, caches, coords, khs):
     """One request's prefill KV through ``PrefillScatter`` as the engine
-    hands it over: [nb, 1, T, khs, kg*hd] k and v, or MLA's latent
-    [nb, 1, T, 1, kvr + dr] alone."""
-    a = caches[0]["kv"][0][:, 0][:, None]
-    b = caches[0]["kv"][1][:, 0][:, None]
+    hands it over: [nb, na, T, khs, kg*hd] k and v, or MLA's latent
+    [nb, na, T, 1, kvr + dr] alone."""
+    kv = [c["kv"] for c in caches if "kv" in c]
+    a = torch.stack([k[:, 0] for k, _ in kv], dim=1)
+    b = torch.stack([v[:, 0] for _, v in kv], dim=1)
     if cfg.is_mla:
         return scatter.scatter_kv(state, torch.cat([a, b], -1)[..., None, :],
                                   None, coords)
@@ -123,14 +163,19 @@ def _apply_moves(reshard, state, records):
      (4, 2, None, "qwen1.5-0.5b", "routed"),
      (4, 2, None, "llama4-scout-17b-a16e", "routed"),
      (2, 4, None, "deepseek-v3", "routed"),
-     (8, 1, None, "tinyllama-1.1b", "routed")],
+     (8, 1, None, "tinyllama-1.1b", "routed"),
+     (2, 4, None, "jamba-v0.1-52b", "routed"),
+     (4, 2, None, "jamba-v0.1-52b", "routed"),
+     (4, 2, None, "mamba2-370m", "routed")],
     ids=["4x2", "2x4-striped", "2x2-kv4-grouped", "minicpm3-4x2",
          "minicpm3-2x4", "4x2-dense", "minicpm3-2x4-dense", "phi3.5-moe-4x2",
          "phi3.5-moe-2x4", "qwen1.5-4x2", "llama4-scout-4x2",
-         "deepseek-v3-2x4", "8x1-wide-ring"])
+         "deepseek-v3-2x4", "8x1-wide-ring", "jamba-2x4", "jamba-4x2",
+         "mamba2-4x2"])
 def test_dcp_decode_equals_reference(I, TP, kv, arch, backend):
     jcfg, jparams, cfg, params = _models(kv, arch)
     _, khs, ps = dcp.attn_tp_geometry(cfg, TP)
+    pinned = cfg.family in ("ssm", "hybrid")
     if cfg.is_mla:
         assert (khs, ps) == (1, TP)          # the latent stripes over all tp
     elif (I, TP) == (2, 4):
@@ -142,7 +187,8 @@ def test_dcp_decode_equals_reference(I, TP, kv, arch, backend):
                            kv_stripes=ps)
     sched = DualBalancedScheduler(buckets=CPBuckets(edges=(100, 256),
                                                     degrees=(1, 2, 3)),
-                                  has_kv=True)
+                                  allow_rebalance=not pinned,
+                                  has_kv=cfg.has_attention)
     rng = np.random.default_rng(0)
     prompt_tokens = {r: rng.integers(0, cfg.vocab_size, (L,))
                      for r, L in PROMPTS.items()}
@@ -151,14 +197,15 @@ def test_dcp_decode_equals_reference(I, TP, kv, arch, backend):
     plan = sched.schedule(cluster)
     assert len(plan.admitted) == len(PROMPTS)
 
-    dims0 = dcp.DecodeDims(M=2, S=2, N=2 + 3 * 2, MB=0, W=I,
+    M0 = 8 if pinned else 2
+    dims0 = dcp.DecodeDims(M=M0, S=2, N=M0 + 3 * 2, MB=0, W=I,
                            num_frames=cluster.page_table.frames_per_instance + 1,
                            page=PAGE, data_size=I, tp=TP, backend=backend)
     state = dcp.init_serve_state(cfg, dims0, I, dtype=torch.float32,
                                  device="cpu")
     state_np = {k: np.zeros(v.shape, np.float32) for k, v in state.items()}
     state_jax_loader = {k: np.zeros(v.shape, np.float32) for k, v in state.items()}
-    jdims0 = jdcp.DecodeDims(M=2, S=2, N=8, MB=0, W=I,
+    jdims0 = jdcp.DecodeDims(M=M0, S=2, N=M0 + 3 * 2, MB=0, W=I,
                              num_frames=dims0.num_frames, page=PAGE,
                              data_size=I, tp=TP)
     scatter = migrate.PrefillScatter(cfg, dims0, I)
@@ -169,19 +216,31 @@ def test_dcp_decode_equals_reference(I, TP, kv, arch, backend):
                                              torch.as_tensor(toks)[None],
                                              collect_kv=True, device="cpu")
         gen[r] = [int(logits[0, -1].argmax())]
-        kv_layers = _kv_layers(caches)
-        migrate.load_prefill_kv(cfg, cluster, dims0, state_np, r, kv_layers)
-        jmigrate.load_prefill_kv(jcfg, cluster, jdims0, state_jax_loader, r,
-                                 kv_layers)
-        _scatter_prefill(cfg, scatter, state, caches,
-                         migrate.prefill_coords(cluster, r, PAGE, ps), khs)
+        if cfg.has_attention:
+            kv_layers = _kv_layers(caches)
+            migrate.load_prefill_kv(cfg, cluster, dims0, state_np, r,
+                                    kv_layers)
+            jmigrate.load_prefill_kv(jcfg, cluster, jdims0, state_jax_loader,
+                                     r, kv_layers)
+            _scatter_prefill(cfg, scatter, state, caches,
+                             migrate.prefill_coords(cluster, r, PAGE, ps), khs)
+        if pinned:
+            inst, slot = cluster.slot_map[r]
+            ssm_layers = _layers_of(caches, "ssm")
+            migrate.load_prefill_ssm(cfg, state_np, inst, slot, ssm_layers)
+            jmigrate.load_prefill_ssm(jcfg, state_jax_loader, inst, slot,
+                                      ssm_layers)
+            ssm = [c["ssm"] for c in caches if "ssm" in c]
+            scatter.scatter_ssm(state, torch.stack([a for a, _ in ssm], 1),
+                                torch.stack([h for _, h in ssm], 1),
+                                np.array([[inst], [slot]]))
     for name in state:
         np.testing.assert_array_equal(state[name].numpy(), state_np[name])
         np.testing.assert_array_equal(state_np[name], state_jax_loader[name])
 
     dparams = dcp.to_decode_params(cfg, params, TP)
     dev_tables = routing.DeviceTables("cpu")
-    shape_buckets = ShapeBuckets(m_buckets=(1, 2, 4, 8),
+    shape_buckets = ShapeBuckets(m_buckets=(8,) if pinned else (1, 2, 4, 8),
                                  s_buckets=(0, 1, 2, 4, 8), window=I)
     next_tok = {r: g[0] for r, g in gen.items()}
     step_logits = {r: [] for r in PROMPTS}
@@ -192,11 +251,13 @@ def test_dcp_decode_equals_reference(I, TP, kv, arch, backend):
         # their KV too, as the engine does
         _apply_moves(reshard, state, plan.escalations + plan.relaxations)
         tbl = routing.lower_plan(cluster, plan, buckets=shape_buckets,
-                                 append_tokens=True, next_tokens=next_tok)
+                                 append_tokens=cfg.has_attention,
+                                 next_tokens=next_tok)
         d = dcp.DecodeDims(M=tbl.M, S=tbl.S, N=tbl.N, MB=tbl.MB, MBT=tbl.MBT,
                            W=I, num_frames=dims0.num_frames, page=PAGE,
                            data_size=I, tp=TP, backend=backend)
-        assert d.num_rounds > 0              # both backends route q rows
+        # both backends route q rows (an attention-free model has none)
+        assert (d.num_rounds > 0) == cfg.has_attention
         state, toks, logits = dcp.build_decode_step(cfg, d)(
             dparams, state, routing.as_device_arrays(tbl, dev_tables))
         for r in PROMPTS:
@@ -210,8 +271,7 @@ def test_dcp_decode_equals_reference(I, TP, kv, arch, backend):
     # teacher-forced reference: one JAX forward per request
     for r, toks in prompt_tokens.items():
         seq = np.concatenate([toks, gen[r][:-1]])
-        ref_logits, _ = jtransformer.forward(jcfg, jparams,
-                                             jnp.asarray(seq)[None, :])
+        ref_logits = _jax_forward(jcfg)(jparams, jnp.asarray(seq)[None, :])
         ref = np.asarray(ref_logits[0, len(toks) - 1:]).argmax(-1)
         assert ref.tolist() == gen[r], (I, TP, kv, r, ref.tolist(), gen[r])
         want = np.asarray(ref_logits[0, len(toks):])

@@ -102,8 +102,16 @@ def test_unported_paths_raise_not_implemented():
     eng = NanoCPEngine(cfg, params, **kw)
     with pytest.raises(NotImplementedError, match="item 12"):
         eng.add_audio_request(None, [])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        transformer.init_params(replace(cfg, family="ssm"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        transformer.init_params(replace(cfg, is_encoder_decoder=True),
+                                device="cpu")
+    # SSM and hybrid configs are ported (item 11): both build and serve
+    for arch in ("mamba2-370m", "jamba-v0.1-52b"):
+        scfg = reduced(CONFIGS[arch], vocab_size=256)
+        sparams = transformer.init_params(scfg, seed=0, device="cpu",
+                                          dtype=torch.float32)
+        NanoCPEngine(scfg, sparams, num_instances=2, instances_per_node=2,
+                     kv_capacity_tokens=128, tp=2, device="cpu")
 
 
 
