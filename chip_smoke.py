@@ -160,7 +160,27 @@ Phases, each printing one JSON line:
                (2, 4) with graphs, and its paged call (G 4 over 4 kv heads
                of 128 per device) and prefill attention (32 q / 8 kv heads,
                S 2000) are re-checked and timed at the main path's inputs.
- 15. summary — the script's seconds, ``{"kernels": [...]}``, then the last
+ 15. whisper — whisper-base at full width and depth (6 encoder + 6
+               decoder layers, d 512, 8 heads of 64, vocab 51,865; the
+               conv/mel frontend a stub: frame embeddings in), random
+               float32 weights (seed 0) with every q/k/v, MLP and layernorm
+               bias drawn from N(0, 0.5) and every layernorm scale from
+               1 + N(0, 0.3).  Six audio requests of 1500 (twice: one
+               batched encode), 750, 300, 120 and 40 frames, each with a
+               4-token decoder prefix and 16 new tokens, SSM_SLOTS pinned
+               slots per instance; at (4, 2) the 1500-frame requests'
+               cross-attention KV spreads over CP degree 3.  The (4, 2)
+               runs go both ways with their profiles, then (2, 4) with
+               graphs; every transcript equals greedy ``encode`` +
+               ``decode_forward`` teacher-forced, the cross pools are
+               bit-equal before and after the decode steps (read-only), no
+               frame is left held, and flash launches split by mask kind
+               (encoder "full", decoder "causal", "cross").  The prefill's
+               encode and decoder-prefix device times per request, and the
+               paged kernel (G 1, hd 64, read-only pools) and flash (the
+               encoder's non-causal S 1500, the cross-attention's Sq 4 x
+               Skv 1500) re-checked and timed at the main path's inputs.
+ 16. summary — the script's seconds, ``{"kernels": [...]}``, then the last
                line
                ``{"ok": true, "device": {...}}``.
 
@@ -175,7 +195,10 @@ boundaries, fp8 pages and ragged tails); and both at DeepSeek-V3's shapes
 groups, f32/bf16/fp8/int8 pages, timed; flash at 128 heads of Dk 192 /
 Dv 128, S 2000, timed), with edge rows at head-group boundaries (G 32,
 33, 64, 128), Qwen1.5's G 1 of hd 64, and flash at DeepSeek-V3's,
-Qwen1.5's and Llama-4-Scout's prefill heads.
+Qwen1.5's and Llama-4-Scout's prefill heads; and whisper's edges: the
+paged kernel at G 1 over 4 kv heads of 64 (split edges, MB = 1) with the
+pools checked unchanged, non-causal flash at Sq 4 x Skv 1500 and 130 with
+kv_len inside a tile, and at Sq = Skv = 1500 with ragged kv_len.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
 without the repository's ``src/`` beside it, the script fails.
@@ -208,7 +231,7 @@ from repro_torch.core.scheduler import (AdmissionController,  # noqa: E402
 from repro_torch.kernels import build, quant, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
-from repro_torch.models import moe, ssm, transformer  # noqa: E402
+from repro_torch.models import encdec, moe, ssm, transformer  # noqa: E402
 from repro_torch.serving import slo  # noqa: E402
 from repro_torch.serving.engine import (NanoCPEngine,  # noqa: E402
                                         UnsupportedDrainError)
@@ -246,8 +269,13 @@ PHI_LAYERS = 8
 PHI_CAPACITY_FACTOR = 8.0
 JAMBA_LAYERS = 8                # one period: 7 SSD + 1 attention, 4 MoE
 JAMBA_CAPACITY_FACTOR = 8.0     # E/k: no token dropped
-SSM_SLOTS = 4                   # slots per instance of the SSM models (the
-                                # reference's SSM cells' one M bucket)
+SSM_SLOTS = 4                   # slots per instance of the SSM models and
+                                # whisper (the reference's SSM and whisper
+                                # cells' one M bucket)
+# whisper's audio: 1500 frames is its 30-second window (twice, so that the
+# admission batches an encode); 4-token decoder prefixes
+WHISPER_FRAMES = (1500, 1500, 750, 300, 120, 40)
+WHISPER_PREFIX = 4
 # Llama-4-Scout: 4 of its 48 layers (a layer is 2.2e9 float32 parameters,
 # 8.8 GB); capacity factor E/k = 16, so C >= T and no token drops.
 # DeepSeek-V3: 1 of its 60 layers (its 256 experts are 45.1 GB in float32);
@@ -418,11 +446,12 @@ def paged_cost(q, k, v, bt, lengths, k_scale=None, v_scale=None):
     return by, 2.0 * toks * Hq * (Dk + Dv)
 
 
-def flash_cost(q, k, v, kv_len, q_offset):
+def flash_cost(q, k, v, kv_len, q_offset, causal=True):
     B, Sq, Hq, Dk = q.shape
     Dv = v.shape[-1]
     kl = int(kv_len[0]) if kv_len is not None else k.shape[1]
-    pairs = sum(min(r + q_offset + 1, kl) for r in range(Sq))
+    pairs = (sum(min(r + q_offset + 1, kl) for r in range(Sq)) if causal
+             else Sq * kl)
     by = nbytes(q, k, v) + B * Sq * Hq * (Dv * q.element_size() + 4)
     return by, 2.0 * B * Hq * pairs * (Dk + Dv)
 
@@ -467,16 +496,18 @@ def paged_row(args, dtype, label: str, scale=None, name=None) -> dict:
             "share_of_bound": bms / ms, "library_ms": None}
 
 
-def flash_row(name: str, q, k, v, kl, qo, timed: bool) -> dict:
-    """Hold flash against its plain version on (q, k, v, kv_len, q_offset);
-    with ``timed`` also time kernel, plain version and SDPA (where SDPA
-    takes the shape), beside the bound."""
+def flash_row(name: str, q, k, v, kl, qo, timed: bool,
+              causal: bool = True) -> dict:
+    """Hold flash against its plain version on (q, k, v, kv_len, q_offset),
+    causal or not; with ``timed`` also time kernel, plain version and SDPA
+    (where SDPA takes the shape), beside the bound."""
     dtype = q.dtype
     dn = str(dtype).replace("torch.", "")
     B, Sq, Hq, Dk = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
-    o, l = fa.flash_attention(q, k, v, kv_len=kl, q_offset=qo)
-    o2, l2 = ref.flash_attention(q, k, v, kv_len=kl, q_offset=qo)
+    o, l = fa.flash_attention(q, k, v, kv_len=kl, q_offset=qo, causal=causal)
+    o2, l2 = ref.flash_attention(q, k, v, kv_len=kl, q_offset=qo,
+                                 causal=causal)
     torch.cuda.synchronize()
     err = max(check_close(f"{name} {dn} Sq={Sq} out", o, o2, dtype),
               check_close(f"{name} {dn} Sq={Sq} lse", l, l2, dtype))
@@ -484,16 +515,17 @@ def flash_row(name: str, q, k, v, kl, qo, timed: bool) -> dict:
            "shape": {"B": B, "Sq": Sq, "Skv": Skv, "Hq": Hq, "Hkv": Hkv,
                      "hd": Dk, "dv": Dv,
                      "kv_len": None if kl is None else kl.tolist(),
-                     "q_offset": qo},
+                     "q_offset": qo, "causal": causal},
            "max_abs_err": err, "tol": TOL[dtype]}
     if timed:
-        row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v))
-        row["plain_ms"] = time_ms(lambda: ref.flash_attention(q, k, v))
+        row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+        row["plain_ms"] = time_ms(lambda: ref.flash_attention(q, k, v,
+                                                              causal=causal))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv)
+                qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv)
         try:
             sdpa()
             torch.cuda.synchronize()
@@ -501,7 +533,7 @@ def flash_row(name: str, q, k, v, kl, qo, timed: bool) -> dict:
             row["library_ms"], row["library_error"] = None, str(exc)[:200]
         else:
             row["library_ms"] = time_ms(sdpa)
-        b, f = flash_cost(q, k, v, kl, qo)
+        b, f = flash_cost(q, k, v, kl, qo, causal)
         row["bound_ms"], row["bound_by"] = bound_ms(b, f, dtype)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
     emit(row)
@@ -567,6 +599,7 @@ def run_kernel_phase(gen) -> dict:
         del q, k, v
     run_edge_checks(gen)
     run_wide_edge_checks()
+    run_whisper_edge_checks()
     return summary
 
 
@@ -681,6 +714,29 @@ def run_wide_edge_checks() -> None:
                    Hkv=8)
 
 
+def run_whisper_edge_checks() -> None:
+    """Whisper's shapes at their edges, from a generator of their own: the
+    paged call at (4, 2) (4 kv heads of 64 per device, G 1) on split
+    edges and MB = 1, float pages then fp8, with the pools bit-equal
+    after the calls (the cross pools are read-only); non-causal flash at
+    8 heads of 64 with Sq 4 against Skv 1500 and 130, kv_len inside a
+    64-key tile, and the encoder's Sq = Skv = 1500 with a ragged kv_len."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bt, lengths = paged_inputs(dtype, gen, kg=4, hd=64, G=1)
+        k0, v0 = k.clone(), v.clone()
+        split_edges((q, k, v, bt, lengths), "whisper G 1 hd 64 read-only ",
+                    ("fp8",), dtype)
+        torch.cuda.synchronize()
+        if not (torch.equal(k, k0) and torch.equal(v, v0)):
+            fail("paged_decode: the kernel wrote its pools")
+        for B, Sq, Skv, kv_len in ((2, 4, 1500, [1500, 37]),
+                                   (1, 4, 130, [70]),
+                                   (2, 1500, 1500, [1500, 1441])):
+            flash_edge(gen, dtype, B, Sq, Skv, 64, 64, kv_len=kv_len,
+                       causal=False, Hq=8, Hkv=8)
+
+
 def run_edge_checks(gen) -> None:
     """The split-KV and tiled kernels at their edges, at the main path's
     widths (paged rows of 2 kv heads x G 8, hd 64; flash 32 q / 4 kv heads
@@ -754,16 +810,25 @@ def teacher_forced_check(cfg, params, prompts, results, tag,
     position from ``start`` on.  A divergence is tolerated only where the
     reference's top-2 logit gap is below GAP_TOL; it is printed with both
     values.  With ``new_tokens`` None a transcript of any nonzero length
-    must be a prefix of greedy (an OOM finish)."""
+    must be a prefix of greedy (an OOM finish).  An encoder-decoder's
+    prompt is (frames, decoder prefix): the greedy pass is ``encode`` of
+    the frames alone, then ``decode_forward`` over prefix + transcript."""
     ties = 0
     for rid, prompt in enumerate(prompts):
         toks = results[rid].tokens
         if len(toks) != (new_tokens or len(toks)) or not toks:
             fail(f"{tag}: request {rid} emitted {len(toks)} tokens")
+        if cfg.is_encoder_decoder:
+            frames, prompt = prompt
         seq = torch.as_tensor(np.concatenate([prompt, toks[:-1]]),
                               device=DEV)[None]
         with torch.no_grad():
-            logits, _ = transformer.forward(cfg, params, seq)
+            if cfg.is_encoder_decoder:
+                enc = encdec.encode(cfg, params,
+                                    torch.as_tensor(frames, device=DEV)[None])
+                logits, _ = encdec.decode_forward(cfg, params, seq, enc)
+            else:
+                logits, _ = transformer.forward(cfg, params, seq)
         lg = logits[0, len(prompt) - 1:].float()
         if not torch.isfinite(lg).all():
             fail(f"{tag}: non-finite reference logits for request {rid}")
@@ -862,6 +927,59 @@ def quant_contract(cfg, params, prompts, eng, kv_dtype: str, tag: str,
     if routes is not None:
         row.update(expert_flips=flips, worst_dlogit_at_flips=worst_flip)
     return row
+
+
+class CrossPoolWatch:
+    """Whisper's read-only cross pools: a copy of them after every prefill
+    batch of ``eng``, and the count of encoder shape groups the batches
+    made (one batched encode each).  Decode never writes the pools, so
+    before each later prefill batch, and when the run ends, they must
+    still equal the last copy; each comparison stays on the device (no
+    sync in the pipelined loop) and ``check`` reads them all."""
+
+    KEYS = ("cross_k_pool", "cross_v_pool")
+
+    def __init__(self, eng):
+        self.eng, self.copy, self.groups, self.batches = eng, None, 0, 0
+        self.same = []
+        self._prefill = eng._prefill_batch
+        eng._prefill_batch = self._record
+
+    def _compare(self) -> None:
+        if self.copy is not None:
+            self.same.extend((self.eng.state[k] == self.copy[k]).all()
+                             for k in self.KEYS)
+
+    def _record(self, reqs, now):
+        self._compare()
+        out = self._prefill(reqs, now)
+        self.groups += len({self.eng._prompts[r.rid].shape for r in reqs})
+        self.batches += 1
+        self.copy = {k: self.eng.state[k].clone() for k in self.KEYS}
+        return out
+
+    def check(self, tag: str) -> dict:
+        """Fails unless the pools were bit-equal to the last copy before
+        every later prefill batch and at the end, and every frame was
+        freed; returns the row's numbers."""
+        eng = self.eng
+        self._compare()
+        if not all(bool(s) for s in self.same):
+            fail(f"{tag}: the cross pools changed during decode (read-only "
+                 f"pools)")
+        audit = eng.cluster.page_table.frame_audit()
+        held = {i: h for i, (_, h) in audit.items() if h}
+        if held:
+            fail(f"{tag}: frames still held after the run: {held}")
+        self.copy = self.eng = self._prefill = None
+        return {"cross_pools_unchanged": True, "leaked_frames": 0,
+                "prefill_batches": self.batches,
+                "pool_comparisons": len(self.same),
+                "encoder_shape_groups": self.groups,
+                "cross_pool_bytes": nbytes(*(eng.state[k]
+                                             for k in self.KEYS)),
+                "self_cache_bytes": nbytes(eng.state["self_k"],
+                                           eng.state["self_v"])}
 
 
 class LargestPagedCall:
@@ -965,18 +1083,22 @@ def attention_layers(cfg) -> int:
 def make_engine(cfg, params, prompts, pipeline: bool, *,
                 new_tokens: int = NEW_TOKENS, **kw) -> NanoCPEngine:
     """The main path's engine: virtual (I=4, TP=2) mesh, the prompts queued.
-    SSM models pin SSM_SLOTS slots per instance, the one M bucket of the
-    reference's SSM cells.  ``kw`` overrides engine settings (kv dtype, the
-    escalation cell's)."""
+    SSM models and whisper pin SSM_SLOTS slots per instance, the one M
+    bucket of the reference's SSM and whisper cells; whisper's prompts are
+    (frames, decoder prefix) audio requests.  ``kw`` overrides engine
+    settings (kv dtype, the escalation cell's)."""
     args = dict(num_instances=4, instances_per_node=4,
                 kv_capacity_tokens=4096, page_size=16, tp=2,
                 buckets=CPBuckets(edges=(100, 256), degrees=(1, 2, 3)))
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid") or cfg.is_encoder_decoder:
         args["max_slots_per_instance"] = SSM_SLOTS
     args.update(kw)
     eng = NanoCPEngine(cfg, params, pipeline=pipeline, device=DEV, **args)
     for p in prompts:
-        eng.add_request(p, max_new_tokens=new_tokens)
+        if cfg.is_encoder_decoder:
+            eng.add_audio_request(*p, max_new_tokens=new_tokens)
+        else:
+            eng.add_request(p, max_new_tokens=new_tokens)
     return eng
 
 
@@ -986,6 +1108,7 @@ def zero_launches() -> None:
     pa.LAUNCHES = 0
     pa.LAUNCHES_BY_PAGE.clear()
     fa.LAUNCHES = 0
+    fa.LAUNCHES_BY_KIND.clear()
 
 
 def read_launches() -> dict:
@@ -1044,6 +1167,7 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
              "from the pipelined recorder run")
     eng = make_engine(cfg, params, prompts, pipeline, new_tokens=new_tokens,
                       cuda_graphs=cuda_graphs, **kw)
+    cross = CrossPoolWatch(eng) if cfg.is_encoder_decoder else None
     zero_launches()
     cap = LargestPagedCall() if quantized and recorder else None
     step_ms, prefill_us, steady, host_us, rounds = [], 0.0, [], {}, 0
@@ -1086,16 +1210,29 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
     run_s = time.perf_counter() - t_run
     launches = {"paged_decode": pa.LAUNCHES, "flash_fwd": fa.LAUNCHES}
     by_page = dict(pa.LAUNCHES_BY_PAGE)
+    by_kind = dict(fa.LAUNCHES_BY_KIND)
     steps = eng.hot_path_stats["steps"]
     n_attn = attention_layers(cfg)
     want = {"paged_decode": steps * n_attn, "flash_fwd": len(prompts) * n_attn}
+    if cross is not None:
+        # the encoder once per shape group of each admitted batch; the
+        # decoder prefix's causal self-attention and its cross-attention
+        # once per request and decoder layer
+        want_kinds = {"full": cross.groups * cfg.num_encoder_layers,
+                      "causal": len(prompts) * n_attn,
+                      "cross": len(prompts) * n_attn}
+        want["flash_fwd"] = sum(want_kinds.values())
+        if by_kind != want_kinds:
+            fail(f"{tag}: flash launches by kind {by_kind}, expected "
+                 f"{want_kinds}")
     if launches != want:
         fail(f"{tag}: launches {launches}, expected {want} "
              f"(steps x attention layers, prompts x attention layers)")
     want_pages = {}
     if n_attn:
-        page_name = str(eng.state["kv_pool" if cfg.is_mla else "k_pool"].dtype
-                        ).replace("torch.", "")
+        pool = ("cross_k_pool" if cfg.is_encoder_decoder
+                else "kv_pool" if cfg.is_mla else "k_pool")
+        page_name = str(eng.state[pool].dtype).replace("torch.", "")
         want_pages[page_name] = want["paged_decode"]
     if by_page != want_pages:
         fail(f"{tag}: paged launches by page type {by_page}, expected "
@@ -1111,9 +1248,12 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
            "backend": eng._dims0.backend,
            "mesh": [eng.cluster.num_instances, eng.tp],
            "requests": len(prompts),
-           "prompt_lens": [len(p) for p in prompts], "new_tokens": new_tokens,
+           "prompt_lens": [len(p[0] if cfg.is_encoder_decoder else p)
+                           for p in prompts], "new_tokens": new_tokens,
            "steps": steps, "max_rounds_used": rounds, "launches": launches,
-           "launches_by_page": by_page}
+           "launches_by_page": by_page, "flash_launches_by_kind": by_kind}
+    if cross is not None:
+        row.update(cross.check(tag))
     if escalate:
         fin = eng.finished[0]
         if (hp["escalations"] < 1 or hp["reshard_tokens"] <= 0
@@ -1640,6 +1780,7 @@ def main() -> None:
                             capacity_factor=DS_CAPACITY_FACTOR),
         ksum, mesh_runs, name="paged_decode_ds", quant=("fp8", "int8"))
     jamba = run_ssm_phase(ksum)["jamba"]
+    whisper = run_whisper_phase(ksum)
 
     src, replaces = ("src/repro_torch/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_attention.py:36")
@@ -1683,7 +1824,13 @@ def main() -> None:
             ("paged_decode_jamba", src, replaces,
              jamba["pipelined"]["launches"]["paged_decode"]),
             ("flash_fwd_jamba", fsrc, freplaces,
-             jamba["pipelined"]["launches"]["flash_fwd"])):
+             jamba["pipelined"]["launches"]["flash_fwd"]),
+            ("paged_decode_whisper", src, replaces,
+             whisper["pipelined"]["launches"]["paged_decode"]),
+            ("flash_fwd_whisper_enc", fsrc, freplaces,
+             whisper["pipelined"]["flash_launches_by_kind"]["full"]),
+            ("flash_fwd_whisper_cross", fsrc, freplaces,
+             whisper["pipelined"]["flash_launches_by_kind"]["cross"])):
         rows = ksum[name]
         # the timing at the main path's shapes: the captured paged call, and
         # the 2000-token prompt's prefill attention; bf16 q beside it
@@ -2680,16 +2827,22 @@ def run_archetype_phase(phase: str, cfg, ksum: dict, runs, *, name: str,
 
 class LargestFlashCall:
     """While active, wraps ``fa.flash_attention`` and keeps a frozen copy of
-    the (q, k, v) of the call with the longest query: a prefill's
-    attention at the main path's shape."""
+    the (q, k, v) and the mask (``causal``) of the call with the largest
+    ``key(q, k, causal)`` (by default the longest query: a prefill's
+    attention at the main path's shape); calls whose key is None are
+    passed over."""
 
-    def __init__(self):
-        self.args = None
+    def __init__(self, key=lambda q, k, causal: q.shape[1]):
+        self.args, self.causal, self.best = None, True, None
+        self.key = key
         self._launch = fa.flash_attention
 
     def _record(self, q, k, v, **kw):
-        if self.args is None or q.shape[1] > self.args[0].shape[1]:
-            self.args = (q.clone(), k.clone(), v.clone())
+        causal = kw.get("causal", True)
+        n = self.key(q, k, causal)
+        if n is not None and (self.best is None or n > self.best):
+            self.args, self.causal, self.best = ((q.clone(), k.clone(),
+                                                  v.clone()), causal, n)
         return self._launch(q, k, v, **kw)
 
     def __enter__(self):
@@ -2839,6 +2992,165 @@ def run_ssm_phase(ksum: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def perturb_encdec(params) -> int:
+    """Overwrite every q/k/v bias, MLP bias (``bi``, ``bo``) and layernorm
+    bias with N(0, BIAS_STD) and every layernorm scale with
+    1 + N(0, NORM_STD), from a seeded generator: the init makes them 0 and
+    1, where a dropped branch would not show.  Returns the number of
+    leaves overwritten."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    n = 0
+
+    def walk(tree):
+        nonlocal n
+        for name, t in tree.items():
+            if isinstance(t, dict):
+                walk(t)
+                continue
+            if name not in ("bq", "bk", "bv", "bi", "bo", "bias", "scale"):
+                continue
+            noise = torch.randn(t.shape, generator=gen, device=DEV)
+            t.copy_(noise.mul_(NORM_STD).add_(1.0) if name == "scale"
+                    else noise.mul_(BIAS_STD))
+            n += 1
+    walk(params)
+    return n
+
+
+def device_wall_ms(fn, iters: int = 5) -> tuple[float, float]:
+    """(device ms, wall ms) of one call of ``fn`` after a warm-up: the
+    profiler's kernel time, and the median over ``iters`` calls of host
+    enqueue to device end.  For calls of many small kernels, whose host
+    enqueue outlasts ``time_ms``'s shield."""
+    fn()
+    torch.cuda.synchronize()
+    wall = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = sum(e.self_device_time_total for e in kernel_events(prof)) / 1e3
+    return device, statistics.median(wall)
+
+
+def whisper_prefill_row(cfg, params, audio) -> dict:
+    """Whisper's prefill pieces as the engine runs them, each as device
+    and wall time (``device_wall_ms``): the encoder once per group of
+    same-shape frame stacks (the two 1500-frame requests in one batch),
+    then each request's decoder prefix teacher-forced with KV collection.
+    Also how far the batched encode is from the encode of each request
+    alone (the engine batches; the greedy check encodes each alone):
+    cuBLAS picks its GEMM by M on the card, so a row may differ within
+    f32 rounding, and more than ``TOL[float32]`` fails the run."""
+    groups = {}
+    for i, (frames, _) in enumerate(audio):
+        groups.setdefault(frames.shape, []).append(i)
+    enc, dec, batch_diff = {}, [], 0.0
+    with torch.no_grad():
+        for shape, idx in groups.items():
+            stack = torch.as_tensor(np.stack([audio[i][0] for i in idx]),
+                                    device=DEV)
+            enc[f"{shape[0]} x {len(idx)}"] = device_wall_ms(
+                lambda: encdec.encode(cfg, params, stack))
+            states = encdec.encode(cfg, params, stack)
+            for b, i in enumerate(idx):
+                if len(idx) > 1:
+                    one = encdec.encode(cfg, params, stack[b:b + 1])
+                    batch_diff = max(batch_diff, float(
+                        (one[0] - states[b]).abs().max()))
+                toks = torch.as_tensor(audio[i][1], device=DEV)[None]
+                dec.append(device_wall_ms(
+                    lambda: encdec.decode_forward(cfg, params, toks,
+                                                  states[b:b + 1],
+                                                  collect_kv=True)))
+    if batch_diff > TOL[torch.float32]:
+        fail(f"whisper: the batched encode differs from the single one by "
+             f"{batch_diff}")
+    n = len(audio)
+    row = {"phase": "prefill", "model": cfg.name,
+           "frames": [len(f) for f, _ in audio],
+           "encode_device_ms_by_group": {k: d for k, (d, _) in enc.items()},
+           "encode_wall_ms_by_group": {k: w for k, (_, w) in enc.items()},
+           "encode_device_ms_per_request": sum(d for d, _ in enc.values()) / n,
+           "encode_wall_ms_per_request": sum(w for _, w in enc.values()) / n,
+           "decoder_prefix_device_ms_per_request": sum(d for d, _ in dec) / n,
+           "decoder_prefix_wall_ms_per_request": sum(w for _, w in dec) / n,
+           "batched_encode_max_abs_diff": batch_diff,
+           "batched_encode_bit_equal": batch_diff == 0.0}
+    emit(row)
+    return row
+
+
+def run_whisper_phase(ksum: dict) -> dict:
+    """Phase 15: whisper-base at full width and depth, random float32
+    weights (seed 0) with perturbed biases and layernorms
+    (``perturb_encdec``), serving six audio requests (``WHISPER_FRAMES``
+    frames, 4-token decoder prefixes, NEW_TOKENS new tokens): the (4, 2)
+    runs both ways with their profiles (``both_ways``; every run checks
+    the read-only cross pools and that no frame stays held), (2, 4) with
+    graphs, the prefill's pieces timed, and the paged and flash kernels
+    re-checked and timed at the main path's inputs
+    (``paged_decode_whisper``, ``flash_fwd_whisper_enc``,
+    ``flash_fwd_whisper_cross``).  Returns the runs' rows."""
+    cfg = get_config("whisper-base")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = encdec.init_params(cfg, seed=0, device=DEV, dtype=torch.float32)
+    perturbed = perturb_encdec(params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    emit({"phase": "whisper", "model": cfg.name,
+          "encoder_layers": cfg.num_encoder_layers,
+          "decoder_layers": cfg.num_layers, "params": n_params,
+          "param_gb": n_params * 4 / 1e9, "perturbed_leaves": perturbed,
+          "init_s": time.perf_counter() - t0,
+          "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    rng = np.random.default_rng(0)
+    audio = [(rng.standard_normal((L, cfg.d_model)).astype(np.float32),
+              rng.integers(0, cfg.vocab_size, (WHISPER_PREFIX,)))
+             for L in WHISPER_FRAMES]
+    runs = both_ways(cfg, params, audio, "whisper")
+    if runs["pipelined"]["max_rounds_used"] < 1:
+        fail("whisper: no step routed a query across instances")
+    runs["2x4 pipelined"] = run_engine(
+        cfg, params, audio, True, tag="whisper 2x4 pipelined",
+        num_instances=2, instances_per_node=2, tp=4,
+        buckets=CPBuckets(edges=(256,), degrees=(1, 2)))
+    whisper_prefill_row(cfg, params, audio)
+    args, sc = runs["captured"]
+    for a in (args, as_bf16_call(args)):
+        row = paged_row(a, a[0].dtype, "whisper main path", scale=sc,
+                        name="paged_decode_whisper")
+        emit(row)
+        ksum.setdefault(row["name"], []).append(row)
+    # the encoder's self-attention (the 1500-frame pair, batched) and a
+    # 1500-frame request's cross-attention, at the main path's inputs
+    stack = torch.as_tensor(np.stack([audio[0][0], audio[1][0]]), device=DEV)
+    with torch.no_grad():
+        with LargestFlashCall(key=lambda q, k, causal: None if causal or
+                              q.shape[1] != k.shape[1] else q.shape[1]) as enc:
+            states = encdec.encode(cfg, params, stack)
+        with LargestFlashCall(key=lambda q, k, causal: None if causal or
+                              q.shape[1] == k.shape[1] else k.shape[1]) as xat:
+            encdec.decode_forward(cfg, params, torch.as_tensor(
+                audio[0][1], device=DEV)[None], states[:1])
+    for name, rec in (("flash_fwd_whisper_enc", enc),
+                      ("flash_fwd_whisper_cross", xat)):
+        for qkv in (rec.args, tuple(t.bfloat16() for t in rec.args)):
+            ksum.setdefault(name, []).append(
+                flash_row(name, *qkv, None, 0, timed=True, causal=False))
+    del params, states, enc, xat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
 
 
 def _leaves(tree):

@@ -4,9 +4,10 @@ reference it is held against).
 Same module layout as ``repro``: ``configs`` (model configs), ``kernels``
 (hand-written Hopper kernels with their plain torch versions, ``ops``
 dispatch by tensor device), ``models`` (the prefill forward of the dense
-GQA, MLA, MoE, SSM and hybrid families), ``core`` (host control plane, the four-phase DCP decode step on
-a virtual (instance, tp) mesh, prefill KV scatter, the per-bucket step
-cache) and ``serving`` (``NanoCPEngine``).  Imports torch and numpy only.
+GQA, MLA, MoE, SSM and hybrid families, and the encoder-decoder's encode
+and decoder passes), ``core`` (host control plane, the four-phase DCP
+decode step on a virtual (instance, tp) mesh, prefill KV scatter, the
+per-bucket step cache) and ``serving`` (``NanoCPEngine``).  Imports torch and numpy only.
 """
 from __future__ import annotations
 

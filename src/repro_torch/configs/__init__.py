@@ -12,13 +12,15 @@ from .phi3_5_moe import CONFIG as phi3_5_moe
 from .qwen1_5_0_5b import CONFIG as qwen1_5_0_5b
 from .qwen2_5_14b import CONFIG as qwen2_5_14b
 from .tinyllama_1_1b import CONFIG as tinyllama_1_1b
+from .whisper_base import CONFIG as whisper_base
 
 # The decoder-only archetypes: dense GQA (qkv bias, qk-norm), MLA, MoE, SSM
-# (Mamba-2) and the SSM/attention hybrid (Jamba).  Encoder-decoder models
-# are not ported yet (ROADMAP queue 1 item 12).
+# (Mamba-2) and the SSM/attention hybrid (Jamba); and the encoder-decoder
+# (whisper, its conv/mel frontend a stub).
 CONFIGS: dict[str, ModelConfig] = {c.name: c for c in [
     tinyllama_1_1b, minicpm3_4b, phi3_5_moe, qwen1_5_0_5b, qwen2_5_14b,
-    chameleon_34b, llama4_scout, deepseek_v3, mamba2_370m, jamba_v0_1]}
+    chameleon_34b, llama4_scout, deepseek_v3, mamba2_370m, jamba_v0_1,
+    whisper_base]}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -13,9 +13,10 @@ dispatch, an entry is the step function itself.  The key arithmetic —
 traffic lands in the same buckets.
 
 A graph reads and writes the storage it was captured with: the params, the
-serve state (pools, and SSM models' per-slot conv windows and SSM state,
-which the step advances in place) and the bucket's table buffers
-(``routing.DeviceTables``).  A tensor rebound anywhere would leave the
+serve state (pools; SSM models' per-slot conv windows and SSM state, and
+whisper's per-slot self-attention caches, which the step advances in
+place; whisper's cross pools, which it only reads) and the bucket's table
+buffers (``routing.DeviceTables``).  A tensor rebound anywhere would leave the
 graph on its old storage with nothing failing, so every replay checks that
 no pointer moved (``InPlaceAudit``) and raises if one did.
 

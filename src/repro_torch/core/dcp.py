@@ -1,6 +1,6 @@
 """DCP decode step (§5) on a virtual (instance, tp) mesh
 (port of ``repro/core/dcp.py``: the dense GQA, MLA and SSD paths, dense
-and MoE FFNs, routed and dense backends).
+and MoE FFNs, routed and dense backends, and the encoder-decoder step).
 
 The JAX package runs the step per device inside ``shard_map`` over the
 (`data`, `model`) mesh.  The port runs the whole mesh in one process on one
@@ -51,7 +51,15 @@ device's squares over tp before it normalises over the whole d_inner, and
 SSM state by SSM ordinal within a block.  Mamba-2 has no attention and no
 pools.
 
-Not ported yet (raises ``NotImplementedError``): the encoder-decoder step.
+The encoder-decoder (whisper) step runs DCP over the cross-attention KV:
+the encoder states' projections live in paged cross pools
+``cross_k_pool``/``cross_v_pool`` ``[L, I, tp, F', page, kg*hd]``, placed
+by DCP like a prompt's KV and READ-ONLY during decode (``_dcp_attention``
+with ``new_k=None``: no append, no scratch-frame write); the decoder's
+self-attention KV is a small per-slot contiguous cache ``self_k``/
+``self_v`` ``[L, I, tp, M, T, kg*hd]`` (T = ``max_target_positions``),
+written at the slot's decoder position and attended over ``[0, pos]`` by
+plain torch (``ref.decode_attention_dense``).
 """
 from __future__ import annotations
 
@@ -62,7 +70,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from ..kernels import ops, quant
+from ..kernels import ops, quant, ref
 from ..models import layers as L
 from ..models.transformer import block_slice, check_supported
 from . import comm
@@ -191,6 +199,33 @@ def _head_tools(cfg: ModelConfig, tp: int):
 # =========================================================================== #
 # decode parameter layout
 # =========================================================================== #
+def _row_chunks(w: torch.Tensor, tp: int) -> torch.Tensor:
+    """A stacked row-parallel weight [nb, R, D] as tp chunks [nb, tp, R/tp,
+    D]."""
+    nb, R, D = w.shape
+    return w.reshape(nb, tp, R // tp, D).contiguous()
+
+
+def _gqa_decode_params(cfg: ModelConfig, mx: dict, tp: int) -> dict:
+    """A stacked GQA attention's decode layout: q heads (and ``bq``) padded
+    per kv group and chunk-permuted, kv heads (and ``bk``/``bv``) tiled
+    over page stripes, ``wo`` padded likewise and cut into ``[nb, tp,
+    R/tp, D]`` row chunks; qk-norm scales pass through."""
+    hd = cfg.head_dim_
+    pad_q, pad_q_rows, tile_kv, _ = _head_tools(cfg, tp)
+    m = {"wq": pad_q(mx["wq"], hd).contiguous(),
+         "wk": tile_kv(mx["wk"], hd).contiguous(),
+         "wv": tile_kv(mx["wv"], hd).contiguous(),
+         "wo": _row_chunks(pad_q_rows(mx["wo"], hd), tp)}
+    if cfg.qkv_bias:            # laid out like the columns they are added to
+        m.update(bq=pad_q(mx["bq"], hd).contiguous(),
+                 bk=tile_kv(mx["bk"], hd).contiguous(),
+                 bv=tile_kv(mx["bv"], hd).contiguous())
+    if cfg.qk_norm:             # per-head scales: the same on every head
+        m.update(q_norm=mx["q_norm"], k_norm=mx["k_norm"])
+    return m
+
+
 def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
     """Restructure prefill params for the decode step: pad q heads PER KV
     GROUP to the hybrid-sharding layout (grouped pad + chunk permutation),
@@ -201,9 +236,8 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
     they are (no copy); their widths are checked against tp as the
     reference's sharding requires."""
     check_supported(cfg)
-    hd = cfg.head_dim_
     hp = attn_tp_geometry(cfg, tp)[0]
-    pad_q, pad_q_rows, tile_kv, perm = _head_tools(cfg, tp)
+    pad_q, pad_q_rows, _, perm = _head_tools(cfg, tp)
     kinds = cfg.block_pattern()
     for kind in kinds:
         ffn_dims = {"moe": (cfg.moe_d_ff_,
@@ -215,10 +249,6 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
     if any(k["mixer"] == "ssm" for k in kinds) and cfg.ssm_num_heads % tp:
         raise ValueError(f"{cfg.ssm_num_heads} SSM heads do not split over "
                          f"tp={tp}")
-
-    def row_chunks(w):
-        nb, R, D = w.shape
-        return w.reshape(nb, tp, R // tp, D).contiguous()
 
     def per_head(w, per):
         """[nb, kvr, H*per] -> [nb, hp, kvr, per], padded and permuted."""
@@ -232,25 +262,12 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
                       cfg.v_head_dim)
         m = {"wkv_a": mx["wkv_a"], "kv_norm": mx["kv_norm"],
              "wk_b": per_head(mx["wk_b"], dn), "wv_b": per_head(mx["wv_b"], dv),
-             "wo": row_chunks(pad_q_rows(mx["wo"], dv))}
+             "wo": _row_chunks(pad_q_rows(mx["wo"], dv), tp)}
         if cfg.q_lora_rank:
             m.update(wq_a=mx["wq_a"], q_norm=mx["q_norm"],
                      wq_b=pad_q(mx["wq_b"], dn + dr).contiguous())
         else:
             m["wq"] = pad_q(mx["wq"], dn + dr).contiguous()
-        return m
-
-    def gqa_mixer(mx):
-        m = {"wq": pad_q(mx["wq"], hd).contiguous(),
-             "wk": tile_kv(mx["wk"], hd).contiguous(),
-             "wv": tile_kv(mx["wv"], hd).contiguous(),
-             "wo": row_chunks(pad_q_rows(mx["wo"], hd))}
-        if cfg.qkv_bias:        # laid out like the columns they are added to
-            m.update(bq=pad_q(mx["bq"], hd).contiguous(),
-                     bk=tile_kv(mx["bk"], hd).contiguous(),
-                     bv=tile_kv(mx["bv"], hd).contiguous())
-        if cfg.qk_norm:         # per-head scales: the same on every head
-            m.update(q_norm=mx["q_norm"], k_norm=mx["k_norm"])
         return m
 
     def ssm_mixer(mx):
@@ -265,7 +282,7 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
             m.update(zip((f"{name}_x", f"{name}_B", f"{name}_C"),
                          torch.split(w, [din, ns, ns], dim=-1)))
         m.update({k: mx[k] for k in ("A_log", "D", "dt_bias", "norm")})
-        m["out_proj"] = row_chunks(mx["out_proj"])
+        m["out_proj"] = _row_chunks(mx["out_proj"], tp)
         return m
 
     def conv_layer(lp, kind):
@@ -273,13 +290,14 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
         if kind["mixer"] == "ssm":
             mixer = ssm_mixer(mx)
         else:
-            mixer = mla_mixer(mx) if cfg.is_mla else gqa_mixer(mx)
+            mixer = (mla_mixer(mx) if cfg.is_mla
+                     else _gqa_decode_params(cfg, mx, tp))
         out = {"ln1": lp["ln1"], "mixer": mixer}
         if kind["ffn"] != "none":
             ffn = lp["ffn"]
             if kind["ffn"] == "dense":
                 ffn = {"wi_gate": ffn["wi_gate"], "wi_up": ffn["wi_up"],
-                       "wo": row_chunks(ffn["wo"])}
+                       "wo": _row_chunks(ffn["wo"], tp)}
             out.update(ln2=lp["ln2"], ffn=ffn)
         return out
 
@@ -424,7 +442,9 @@ def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
     q: [I, tp, M, hl, dk] local-slot queries.  k_pool/v_pool:
     [I, tp, F', page, kg*(dk|dv)] sub-pools (device (i, j) holds kv-head
     group j % khs, page stripe j // khs), updated IN PLACE by this step's
-    appends.  new_k/new_v: [I, tp, M, kg*(dk|dv)] this step's token KV.
+    appends.  new_k/new_v: [I, tp, M, kg*(dk|dv)] this step's token KV, or
+    new_k = new_v = None for read-only pools (whisper's cross-attention:
+    nothing is written, the scratch frame included).
     MLA passes its latent pool as k_pool with v_pool = new_v = None: v is
     then the view ``k[..., :dv]`` of the same pages, and its scales are
     k_scale's.  k_scale/v_scale: [I, tp, F'] per-page scales iff the pools
@@ -447,33 +467,35 @@ def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
     # instance i's zig-zag ring segment starts at node0[i] (dense backend)
     node0 = (ii1 // W) * W
 
-    # -- KV append (write-then-attend) --
-    # Only the frame's stripe owner writes; everyone else (and inactive
-    # slots) writes into the local scratch frame (last frame of the
-    # sub-pool, never handed out by the allocator).  Scratch rows may repeat
-    # (offsets arange(M) % page), which leaves that frame undefined — it is
-    # never read.
-    act = (tbl["slot_active"] != 0)[:, None, :].expand(I, tp, M)
-    af_g = tbl["append_frame"].long()[:, None, :]
-    mine = act & ((af_g % ps) == p_of[None, :, None]) if ps > 1 else act
-    af = torch.where(mine, af_g // ps, torch.full_like(af_g, Fp - 1))
-    ao = torch.where(mine, tbl["append_off"].long()[:, None, :],
-                     (torch.arange(M, device=dev) % page)[None, None, :])
-    ii = ii1[:, None, None]
-    jj = jt[None, :, None]
-    appends = [(k_pool, k_scale, new_k)]
-    if v_pool is not None:
-        appends.append((v_pool, v_scale, new_v))
-    for pool, sc, new in appends:
-        if sc is None:
-            pool[ii, jj, af, ao] = new.to(pool.dtype)
-        else:
-            # offset-0 rule: an append at offset 0 starts the page with this
-            # token's amax/qmax; a later one clips into the page's scale.
-            # Rows that repeat only hit the scratch frame, never read
-            quant.write_offset0(pool, (ii, jj, af, ao), sc, (ii, jj, af), new,
-                                quant.amax_scale(new, dims.kv_dtype), ao == 0,
-                                dims.kv_dtype)
+    if new_k is not None:
+        # -- KV append (write-then-attend) --
+        # Only the frame's stripe owner writes; everyone else (and
+        # inactive slots) writes into the local scratch frame (last frame of
+        # the sub-pool, never handed out by the allocator).  Scratch rows
+        # may repeat (offsets arange(M) % page), which leaves that frame
+        # undefined — it is never read.
+        act = (tbl["slot_active"] != 0)[:, None, :].expand(I, tp, M)
+        af_g = tbl["append_frame"].long()[:, None, :]
+        mine = act & ((af_g % ps) == p_of[None, :, None]) if ps > 1 else act
+        af = torch.where(mine, af_g // ps, torch.full_like(af_g, Fp - 1))
+        ao = torch.where(mine, tbl["append_off"].long()[:, None, :],
+                         (torch.arange(M, device=dev) % page)[None, None, :])
+        ii = ii1[:, None, None]
+        jj = jt[None, :, None]
+        appends = [(k_pool, k_scale, new_k)]
+        if v_pool is not None:
+            appends.append((v_pool, v_scale, new_v))
+        for pool, sc, new in appends:
+            if sc is None:
+                pool[ii, jj, af, ao] = new.to(pool.dtype)
+            else:
+                # offset-0 rule: an append at offset 0 starts the page with
+                # this token's amax/qmax; a later one clips into the page's
+                # scale.  Rows that repeat only hit the scratch frame, never
+                # read
+                quant.write_offset0(pool, (ii, jj, af, ao), sc, (ii, jj, af),
+                                    new, quant.amax_scale(new, dims.kv_dtype),
+                                    ao == 0, dims.kv_dtype)
 
     # -- Phase 1: Q-routing over the zig-zag ring --
     if dense:
@@ -579,6 +601,26 @@ def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
     return merged.to(q.dtype)
 
 
+def _heads(cfg: ModelConfig, dims: DecodeDims, mx: dict, h, hl: int,
+           kv: bool):
+    """A decode attention's projections for every device: q [I, tp, M, hl,
+    hd] and, with ``kv``, the token's k and v [I, tp, M, kg*hd] (the
+    column chunks of the tiled kv weights)."""
+    I, tp, M, hd = dims.data_size, dims.tp, dims.M, cfg.head_dim_
+    q = h @ mx["wq"]
+    if cfg.qkv_bias:
+        q = q + mx["bq"].to(q.dtype)
+    q = q.reshape(I, M, tp, hl, hd).transpose(1, 2)
+    if not kv:
+        return q
+    k, v = h @ mx["wk"], h @ mx["wv"]
+    if cfg.qkv_bias:
+        k = k + mx["bk"].to(k.dtype)
+        v = v + mx["bv"].to(v.dtype)
+    return (q, k.reshape(I, M, tp, -1).transpose(1, 2),
+            v.reshape(I, M, tp, -1).transpose(1, 2))
+
+
 def _to_rows(o: torch.Tensor, tp: int) -> torch.Tensor:
     """[I, tp, M, hl, d] per-device head outputs -> [tp, I*M, hl*d], the
     left operand of the row-parallel ``wo`` chunks."""
@@ -599,14 +641,8 @@ def _attn_layer(cfg: ModelConfig, dims: DecodeDims, lp: dict, x, pools,
     kg = kv_group_size(cfg, tp)
     mx = lp["mixer"]
     h = L.apply_norm(cfg, lp["ln1"], x)
-    q, k, v = h @ mx["wq"], h @ mx["wk"], h @ mx["wv"]
-    if cfg.qkv_bias:
-        q = q + mx["bq"].to(q.dtype)
-        k = k + mx["bk"].to(k.dtype)
-        v = v + mx["bv"].to(v.dtype)
-    q = q.reshape(I, M, tp, hl, hd).transpose(1, 2)
-    k = k.reshape(I, M, tp, kg, hd).transpose(1, 2)
-    v = v.reshape(I, M, tp, kg * hd).transpose(1, 2)
+    q, k, v = _heads(cfg, dims, mx, h, hl, kv=True)
+    k = k.reshape(I, tp, M, kg, hd)
     if cfg.qk_norm:             # per head, before rope
         q = L.rms_norm_vec(q, mx["q_norm"])
         k = L.rms_norm_vec(k, mx["k_norm"])
@@ -753,6 +789,145 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
                                            tp=tp)
                 else:
                     x = x + dense_decode_ffn(cfg, lp["ffn"], h, tp)
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        logits = L.apply_head(cfg, params["head"], params["embed"], x)
+        logits = logits.float().reshape(I, M, -1)
+        nxt = _sample_greedy(logits, tp)
+        nxt = torch.where(tbl["slot_active"] != 0, nxt, torch.full_like(nxt, -1))
+        return state, nxt, logits
+
+    return step
+
+
+# =========================================================================== #
+# encoder-decoder (whisper) decode: DCP over the cross-attention KV
+# =========================================================================== #
+ENCDEC_STATE = ("cross_k_pool", "cross_v_pool", "self_k", "self_v")
+
+
+def _check_encdec(cfg: ModelConfig, dims: DecodeDims) -> None:
+    if not cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name} is not an encoder-decoder model")
+    check_dims(dims)
+    if quant.is_quantized(dims.kv_dtype):
+        raise ValueError("encoder-decoder pools are unquantized (kv_dtype "
+                         f"{dims.kv_dtype!r})")
+
+
+def init_encdec_serve_state(cfg: ModelConfig, dims: DecodeDims,
+                            num_instances: int, dtype=torch.bfloat16,
+                            device="cuda") -> dict:
+    """Zeroed whisper serve state: the paged cross pools ``cross_k_pool``/
+    ``cross_v_pool`` ``[L, I, tp, F', page, kg*hd]`` (the DCP-managed KV of
+    the encoder states; the last frame of each sub-pool is the allocator's
+    scratch frame) and the per-slot decoder self-attention caches
+    ``self_k``/``self_v`` ``[L, I, tp, M, T, kg*hd]``, T the decoder's
+    ``max_target_positions``.  Each model chunk stores its whole kv-head
+    group (kg = 1 unless tp < num_kv_heads)."""
+    _check_encdec(cfg, dims)
+    dev = resolve_device(device)
+    I, L = num_instances, cfg.num_layers
+    _, _, ps = attn_tp_geometry(cfg, dims.tp)
+    width = kv_group_size(cfg, dims.tp) * cfg.head_dim_
+    fp = -(-(dims.num_frames - 1) // ps) + 1
+    pool = (L, I, dims.tp, fp, dims.page, width)
+    cache = (L, I, dims.tp, dims.M, cfg.max_target_positions, width)
+    return {name: torch.zeros(shape, dtype=dtype, device=dev)
+            for name, shape in zip(ENCDEC_STATE, (pool, pool, cache, cache))}
+
+
+def to_encdec_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
+    """The decoder's decode layout: the self- and the cross-attention each
+    laid out as ``to_decode_params`` lays out a GQA mixer
+    (``_gqa_decode_params``), the MLP's row-parallel ``wo`` cut into ``[L,
+    tp, R/tp, D]`` chunks.  The encoder's weights are dropped (prefill
+    only)."""
+    if not cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name} is not an encoder-decoder model")
+    if cfg.d_ff % tp:
+        raise ValueError(f"FFN width {cfg.d_ff} does not split over tp={tp}")
+    dec = params["dec_blocks"]
+    mlp = dec["mlp"]
+    return {"embed": params["embed"],
+            "dec_blocks": {"ln1": dec["ln1"],
+                           "self_attn": _gqa_decode_params(
+                               cfg, dec["self_attn"], tp),
+                           "ln_x": dec["ln_x"],
+                           "cross_attn": _gqa_decode_params(
+                               cfg, dec["cross_attn"], tp),
+                           "ln2": dec["ln2"],
+                           "mlp": {"wi": mlp["wi"], "bi": mlp["bi"],
+                                   "wo": _row_chunks(mlp["wo"], tp),
+                                   "bo": mlp["bo"]}},
+            "final_norm": params["final_norm"], "head": params["head"]}
+
+
+def build_encdec_decode_step(cfg: ModelConfig, dims: DecodeDims):
+    """Returns ``step(params, state, tables) -> (state, next_tokens [I, M],
+    logits [I, M, Vp])`` of the whisper decoder over the whole virtual mesh.
+
+    ``params`` is the ``to_encdec_decode_params`` layout, ``state`` the
+    ``init_encdec_serve_state`` tensors, ``tables`` the routing tables;
+    ``slot_pos`` is each slot's decoder position (the new token's
+    self-attention index).  Per decoder layer: self-attention over the
+    slot's contiguous cache (written at ``pos`` IN PLACE, then attended
+    over ``[0, pos]``), cross-attention through the four DCP phases over
+    the read-only cross pools, the gelu MLP; then the vocab-sharded greedy
+    sample.  The slot dimension of the self caches is pinned: the step's
+    M must be theirs.
+    """
+    _check_encdec(cfg, dims)
+    geom = attn_tp_geometry(cfg, dims.tp)
+    I, M, tp = dims.data_size, dims.M, dims.tp
+    hd = cfg.head_dim_
+    hl = geom[0] // tp
+    kg = kv_group_size(cfg, tp)
+
+    def self_attention(mx, h, pos, sk, sv):
+        """sk/sv: this layer's [I, tp, M, T, kg*hd] caches, written in
+        place at each slot's ``pos``."""
+        q, k, v = _heads(cfg, dims, mx, h, hl, kv=True)
+        ii = torch.arange(I, device=h.device)[:, None, None]
+        jj = torch.arange(tp, device=h.device)[None, :, None]
+        mm = torch.arange(M, device=h.device)[None, None, :]
+        pp = pos.long()[:, None, :]
+        sk[ii, jj, mm, pp] = k.to(sk.dtype)
+        sv[ii, jj, mm, pp] = v.to(sv.dtype)
+        T = sk.shape[3]
+        lengths = (pos + 1).to(torch.int32)[:, None, :].expand(I, tp, M)
+        o, _ = ref.decode_attention_dense(
+            q.reshape(I * tp * M, hl, hd), sk.reshape(I * tp * M, T, kg, hd),
+            sv.reshape(I * tp * M, T, kg, hd), lengths.reshape(-1))
+        o = o.reshape(I, tp, M, hl, hd)
+        return torch.bmm(_to_rows(o, tp), mx["wo"]).sum(dim=0)  # psum
+
+    def step(params, state, tbl):
+        if state["self_k"].shape[3] != M:
+            raise ValueError(f"step M {M} != the self caches' pinned slots "
+                             f"{state['self_k'].shape[3]}")
+        tokens, pos = tbl["slot_token"], tbl["slot_pos"]          # [I, M]
+        tbl = _mask_eos_slots(dims, tbl, tokens)
+        emb, pos_dec = params["embed"]["tok"], params["embed"]["pos_dec"]
+        x = _embed_lookup(emb, tokens, tp).to(emb.dtype)
+        x = x + pos_dec[pos.long()].to(x.dtype)
+        # the residual stream takes pos_dec's dtype, as the reference's does
+        x = x.to(pos_dec.dtype).reshape(I * M, -1)
+        for li in range(cfg.num_layers):
+            lp = block_slice(params["dec_blocks"], li)
+            h = L.apply_norm(cfg, lp["ln1"], x)
+            x = x + self_attention(lp["self_attn"], h, pos,
+                                   state["self_k"][li], state["self_v"][li])
+            # cross-attention through DCP over the read-only cross pools
+            h = L.apply_norm(cfg, lp["ln_x"], x)
+            mx = lp["cross_attn"]
+            q = _heads(cfg, dims, mx, h, hl, kv=False)
+            merged = _dcp_attention(dims, q, state["cross_k_pool"][li],
+                                    state["cross_v_pool"][li], None, None,
+                                    tbl, dk=hd, dv=hd, geom=geom,
+                                    scale=hd ** -0.5)
+            x = x + torch.bmm(_to_rows(merged, tp), mx["wo"]).sum(dim=0)
+            h = L.apply_norm(cfg, lp["ln2"], x)
+            x = x + dense_decode_ffn(cfg, lp["mlp"], h, tp)
         x = L.apply_norm(cfg, params["final_norm"], x)
         logits = L.apply_head(cfg, params["head"], params["embed"], x)
         logits = logits.float().reshape(I, M, -1)

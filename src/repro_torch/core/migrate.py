@@ -1,6 +1,7 @@
 """KV-cache migration: prefill output -> DCP-placed pool frames (§3 (2)-(3)),
 port of ``repro/core/migrate.py`` (GQA pools and MLA's latent pool,
-unquantized or fp8/int8; SSM layers' per-slot state).
+unquantized or fp8/int8; SSM layers' per-slot state; whisper's cross and
+self KV).
 
 Token->shard assignment is contiguous ranges in sorted binding order
 (decode attention + LSE merge are order-agnostic over the prefix, so any
@@ -16,6 +17,10 @@ Two implementations:
     coordinate tensors; every request admitted in one scheduler step
     batches into one call.  SSM layers' final prefill state goes to the
     request's decode slot (``load_prefill_ssm`` / ``scatter_ssm``).
+    Whisper's cross-attention KV goes to the paged cross pools by the same
+    DCP placement, its decoder prefix's self-attention KV to the slot's
+    contiguous cache (``load_prefill_cross_kv`` / ``scatter_cross_kv``,
+    ``load_prefill_self_kv`` / ``scatter_self_kv``).
 
 ``KVReshard`` moves RESIDENT KV between pool coordinates (the live re-shard
 behind escalation and relaxation); the reference's main path relaxes (it
@@ -26,8 +31,6 @@ Quantized pools move with their per-page scales under the offset-0 rule
 (``kernels/quant.py``): the scatter quantizes on the write, the re-shard
 dequantizes with the source scales and requantizes against the
 destination's.
-
-Not ported yet: whisper cross/self KV (ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -118,6 +121,58 @@ def load_prefill_ssm(cfg: ModelConfig, state_np: dict, instance: int,
         state_np["conv_B"][bi, pos, instance, slot] = conv[:, din:din + ns]
         state_np["conv_C"][bi, pos, instance, slot] = conv[:, din + ns:]
         state_np["ssm_state"][bi, pos, instance, slot] = np.asarray(h, np.float32)
+
+
+def load_prefill_cross_kv(cfg: ModelConfig, cluster: ClusterState,
+                          dims: DecodeDims, state_np: dict, rid: int,
+                          cross_layers) -> None:
+    """Whisper: write one request's per-decoder-layer cross-attention KV
+    (the encoder states' projections) into the (numpy) paged cross pools,
+    by its DCP placement.
+
+    cross_layers: per decoder layer, (k [S_enc, Hkv, hd], v [S_enc, Hkv,
+    hd]).
+    """
+    page = dims.page
+    pt = cluster.page_table
+    ranges = shard_ranges(cluster, rid)
+    _, khs, ps = attn_tp_geometry(cfg, dims.tp)
+    kg = kv_group_size(cfg, dims.tp)
+    kp, vp = state_np["cross_k_pool"], state_np["cross_v_pool"]
+    for layer, (k, v) in enumerate(cross_layers):
+        k = np.asarray(k, np.float32)
+        v = np.asarray(v, np.float32)
+        for s, start, t in ranges:
+            frames = pt.shard_frames(rid, s)
+            for j in range(t):
+                f, o = frames[j // page], j % page
+                for h in range(khs):
+                    c = (f % ps) * khs + h
+                    grp = slice(h * kg, (h + 1) * kg)
+                    kp[layer, s, c, f // ps, o] = k[start + j, grp].reshape(-1)
+                    vp[layer, s, c, f // ps, o] = v[start + j, grp].reshape(-1)
+
+
+def load_prefill_self_kv(cfg: ModelConfig, dims: DecodeDims, state_np: dict,
+                         instance: int, slot: int, self_layers) -> None:
+    """Whisper: one request's decoder-prefix self-attention KV into its
+    slot's contiguous (numpy) cache; model chunk c holds kv-head group
+    c % khs, for every page stripe.
+
+    self_layers: per decoder layer, (k [T0, Hkv, hd], v [T0, Hkv, hd]).
+    """
+    _, khs, ps = attn_tp_geometry(cfg, dims.tp)
+    kg = kv_group_size(cfg, dims.tp)
+    for layer, (k, v) in enumerate(self_layers):
+        t0 = k.shape[0]
+        k = np.asarray(k, np.float32)
+        v = np.asarray(v, np.float32)
+        for c in range(khs * ps):
+            grp = slice((c % khs) * kg, (c % khs + 1) * kg)
+            state_np["self_k"][layer, instance, c, slot, :t0] = \
+                k[:, grp].reshape(t0, -1)
+            state_np["self_v"][layer, instance, c, slot, :t0] = \
+                v[:, grp].reshape(t0, -1)
 
 
 def prefill_coords(cluster: ClusterState, rid: int, page: int,
@@ -224,6 +279,37 @@ class PrefillScatter:
                               torch.split(conv, [din, ns, ns], dim=-1)):
             state[name][:, :, inst, slot] = part.to(state[name].dtype)
         state["ssm_state"][:, :, inst, slot] = h.to(state["ssm_state"].dtype)
+        return state
+
+    def scatter_cross_kv(self, state: dict, k: torch.Tensor, v: torch.Tensor,
+                         coords: np.ndarray) -> dict:
+        """Whisper's cross-attention KV into the paged cross pools
+        ``[L, I, tp, F', page, kg*hd]``, in place.  k, v: [L, T, khs, kg*hd]
+        device tensors (the Hkv heads as khs groups of kg); coords from
+        ``prefill_coords`` (concatenated over the admitted batch).  Returns
+        ``state``."""
+        cs = torch.as_tensor(np.asarray(coords, np.int64), device=k.device)
+        inst, stripe, subf, off = cs
+        c = stripe[:, None] * self.khs + torch.arange(self.khs,
+                                                      device=k.device)
+        ix = (slice(None), inst[:, None], c, subf[:, None], off[:, None])
+        for key, x in (("cross_k_pool", k), ("cross_v_pool", v)):
+            state[key][ix] = x.to(state[key].dtype)
+        return state
+
+    def scatter_self_kv(self, state: dict, k: torch.Tensor, v: torch.Tensor,
+                        coords: np.ndarray) -> dict:
+        """Whisper's decoder-prefix self-attention KV into the per-slot
+        caches ``[L, I, tp, M, T, kg*hd]``, in place.  k, v: [L, T, tp,
+        kg*hd] device tensors (head groups already tiled over the page
+        stripes: chunk c holds group c % khs); coords int [3, T]
+        (instance, slot, position) per prefix token.  Returns ``state``."""
+        cs = torch.as_tensor(np.asarray(coords, np.int64), device=k.device)
+        inst, slot, pos = cs
+        cc = torch.arange(self.dims.tp, device=k.device)[None, :]
+        ix = (slice(None), inst[:, None], cc, slot[:, None], pos[:, None])
+        for key, x in (("self_k", k), ("self_v", v)):
+            state[key][ix] = x.to(state[key].dtype)
         return state
 
 

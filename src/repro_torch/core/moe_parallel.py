@@ -75,17 +75,20 @@ def _combine(out: torch.Tensor, I: int) -> torch.Tensor:
 
 def dense_decode_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
                      tp: int) -> torch.Tensor:
-    """Dense TP FFN for decode: column-parallel gate/up, row-parallel down,
-    then the psum over tp as a sum over the tp dim.
+    """Dense TP FFN for decode: column-parallel up-projection(s), row-parallel
+    down, then the psum over tp as a sum over the tp dim.
 
-    x: [T, D] rows of every instance (identical on each tp device).
-    p["wi_gate"], p["wi_up"]: [D, F] with column chunk c = F/tp slice c;
-    p["wo"]: [tp, F/tp, D] row chunks.  Returns [T, D].
+    x: [T, D] rows of every instance (identical on each tp device).  Gated
+    silu: p["wi_gate"], p["wi_up"] [D, F] with column chunk c = F/tp slice
+    c.  Plain gelu (whisper): p["wi"] [D, F] and its bias p["bi"] [F]
+    likewise, and the replicated output bias p["bo"] [D], added once after
+    the psum.  p["wo"]: [tp, F/tp, D] row chunks.  Returns [T, D].
     """
-    if cfg.act != "silu":
-        raise NotImplementedError("gelu decode FFN is not ported yet "
-                                  "(ROADMAP queue 1 item 12)")
     T = x.shape[0]
-    h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])            # [T, F]
+    if cfg.act == "silu":
+        h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])        # [T, F]
+    else:
+        h = F.gelu(x @ p["wi"] + p["bi"].to(x.dtype), approximate="tanh")
     h = h.reshape(T, tp, -1).transpose(0, 1)                   # [tp, T, F/tp]
-    return torch.bmm(h, p["wo"]).sum(dim=0)                    # psum over tp
+    out = torch.bmm(h, p["wo"]).sum(dim=0)                     # psum over tp
+    return out if cfg.act == "silu" else out + p["bo"].to(x.dtype)

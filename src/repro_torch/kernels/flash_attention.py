@@ -1,5 +1,5 @@
-"""Causal flash-attention forward with LSE: the Hopper kernel and its plain
-version.
+"""Flash-attention forward with LSE, causal or not: the Hopper kernel and its
+plain version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::_fwd_kernel``
 (wrappers ``_flash_fwd`` / ``flash_attention``).  The CUDA source is
@@ -25,7 +25,10 @@ jnp (no Pallas) and belongs to the training slice (ROADMAP queue 1 item 15).
 
 ``plain`` is the plain torch version (``ref.flash_attention``); the wrapper
 runs it for CPU tensors and launches the kernel for CUDA ones.
-``LAUNCHES`` counts kernel launches (not plain-version calls).
+``LAUNCHES`` counts kernel launches (not plain-version calls), and
+``LAUNCHES_BY_KIND`` counts them by mask: "causal", "full" (non-causal with
+Sq == Skv: an encoder's self-attention) and "cross" (non-causal with
+Sq != Skv: a decoder's cross-attention over encoder states).
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from . import build
 from .ref import flash_attention as plain
 
 LAUNCHES = 0
+LAUNCHES_BY_KIND: dict = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -99,4 +103,6 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
                  stream)
     build.check(rc, "flash_fwd")
     LAUNCHES += 1
+    kind = "causal" if causal else ("full" if Sq == Skv else "cross")
+    LAUNCHES_BY_KIND[kind] = LAUNCHES_BY_KIND.get(kind, 0) + 1
     return out, lse

@@ -1,10 +1,12 @@
-"""GQA attention layer (prefill path) + KV emission for caches
-(port of ``repro/models/attention.py``)."""
+"""GQA attention layer (prefill path) + KV emission for caches, and the
+encoder-decoder's cross-attention over precomputed encoder KV (port of
+``repro/models/attention.py``)."""
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..kernels import ops
 from . import layers
 
 
@@ -50,3 +52,39 @@ def qkv_proj(cfg: ModelConfig, p: dict, x: torch.Tensor,
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                   positions: torch.Tensor, *, causal: bool = True):
+    """Full self-attention layer body (no residual or norm): the flash
+    kernel on CUDA, causal or not (the encoder's)."""
+    q, k, v = qkv_proj(cfg, p, x, positions)
+    o = ops.attention(q, k, v, causal=causal)
+    B, S = x.shape[:2]
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    mem_k: torch.Tensor, mem_v: torch.Tensor):
+    """x: [B, Sq, D]; mem_k/v: [B, Skv, Hkv, hd], the precomputed encoder
+    KV (``encoder_kv``).  Non-causal attention of every query over every
+    encoder position."""
+    B, Sq, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    q = q.reshape(B, Sq, cfg.num_heads, cfg.head_dim_)
+    o = ops.attention(q, mem_k, mem_v, causal=False)
+    return o.reshape(B, Sq, -1) @ p["wo"]
+
+
+def encoder_kv(cfg: ModelConfig, p: dict, mem: torch.Tensor):
+    """Project encoder states [B, S, D] to the cross-attention's k and v
+    [B, S, Hkv, hd], once per request."""
+    B, S, _ = mem.shape
+    k, v = mem @ p["wk"], mem @ p["wv"]
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(mem.dtype)
+        v = v + p["bv"].to(mem.dtype)
+    shape = (B, S, cfg.num_kv_heads, cfg.head_dim_)
+    return k.reshape(shape), v.reshape(shape)

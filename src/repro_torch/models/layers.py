@@ -73,30 +73,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
-# MLP (gated silu)
+# MLPs: gated silu, or plain tanh-gelu with biases (whisper)
 # --------------------------------------------------------------------------- #
 def make_mlp_params(gen, cfg: ModelConfig, *, dtype, device,
                     d_ff: int | None = None) -> dict:
-    if cfg.act != "silu":
-        raise NotImplementedError("gelu MLPs are not ported yet "
-                                  "(ROADMAP queue 1 item 12)")
     D, Fd = cfg.d_model, d_ff or cfg.d_ff
-    return {"wi_gate": dense_init(gen, (D, Fd), dtype=dtype, device=device),
-            "wi_up": dense_init(gen, (D, Fd), dtype=dtype, device=device),
-            "wo": dense_init(gen, (Fd, D), dtype=dtype, device=device)}
+    mk = lambda shape: dense_init(gen, shape, dtype=dtype, device=device)
+    if cfg.act == "silu":
+        return {"wi_gate": mk((D, Fd)), "wi_up": mk((D, Fd)),
+                "wo": mk((Fd, D))}
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"wi": mk((D, Fd)), "bi": torch.zeros((Fd,), **f32),
+            "wo": mk((Fd, D)), "bo": torch.zeros((D,), **f32)}
 
 
 def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+    if cfg.act == "silu":
+        return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+    h = F.gelu(x @ p["wi"] + p["bi"].to(x.dtype), approximate="tanh")
+    return h @ p["wo"] + p["bo"].to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #
 # embeddings / head
 # --------------------------------------------------------------------------- #
 def make_embed_params(gen, cfg: ModelConfig, *, dtype, device) -> dict:
+    """Token embeddings, and the encoder-decoder's learned decoder positions
+    ``pos_dec`` [max_target_positions, D] where it has no rope."""
     Vp, D = cfg.padded_vocab, cfg.d_model
-    return {"tok": (torch.randn((Vp, D), generator=gen, dtype=torch.float32,
-                                device=device) * 0.02).to(dtype)}
+
+    def normal(shape):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device) * 0.02).to(dtype)
+    p = {"tok": normal((Vp, D))}
+    if not cfg.rope and cfg.is_encoder_decoder:
+        p["pos_dec"] = normal((cfg.max_target_positions, D))
+    return p
 
 
 def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,8 @@ block pattern; block parameters are stacked on a leading axis (the JAX
 package's ``params["blocks"]`` layout, which it ``lax.scan``s) and the
 forward loops over them.  A layer's mixer is attention or an SSD block
 (``kind["mixer"]``); its FFN is dense, MoE or, for Mamba-2, absent.  The
-encoder-decoder family raises ``NotImplementedError`` (ROADMAP queue 1
-item 12).
+encoder-decoder family has its own trunk (``models/encdec.py``;
+``models.init_params`` dispatches by config).
 """
 from __future__ import annotations
 
@@ -22,11 +22,14 @@ from . import layers, mla, moe, ssm
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves every decoder-only family: dense GQA (with qkv bias
-    or qk-norm), MLA, MoE, SSM and the SSM/attention hybrid."""
+    """The decoder-only trunk (and its decode step) takes every
+    decoder-only family: dense GQA (with qkv bias or qk-norm), MLA, MoE,
+    SSM and the SSM/attention hybrid.  An encoder-decoder config goes
+    through ``models/encdec.py`` and ``dcp``'s ``encdec`` functions."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError("encoder-decoder models are not ported yet "
-                                  "(ROADMAP queue 1 item 12)")
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: use "
+                         "models.encdec (or models.init_params) and the "
+                         "dcp encdec step")
 
 
 # --------------------------------------------------------------------------- #

@@ -83,8 +83,16 @@ re-prefilled (its KV only).  Mamba-2 has no KV: no appends, no escalation,
 no pools.  The prefix cache and prefill cells need KV appends, and
 ``fork_request`` a slot that can move, as in the reference.
 
-Not ported yet, raising ``NotImplementedError`` where the reference would
-act: encoder-decoder models (item 12).
+Encoder-decoder models (whisper) take audio requests
+(``add_audio_request``: stub frame embeddings and a decoder prefix).  The
+prefill encodes the frames (one batched ``encode`` per group of
+same-shape frame stacks), runs the decoder prefix teacher-forced, and
+scatters the cross-attention KV into the paged cross pools by its DCP
+placement (long audio spreads over CP degree 2-3) and the prefix's
+self-attention KV into the slot's contiguous cache.  Decode never appends
+to the cross pools, so nothing grows: no escalation, and with it no
+relaxation, and the slots are pinned (their self caches live there).  A
+request that loses KV to an instance failure finishes degraded.
 """
 from __future__ import annotations
 
@@ -107,7 +115,7 @@ from ..core.prefix import PrefixTrie, page_keys
 from ..core.scheduler import BaseScheduler, DualBalancedScheduler
 from ..core.state import ClusterState, Request
 from ..kernels import quant
-from ..models import transformer
+from ..models import encdec, transformer
 
 
 @dataclass
@@ -148,15 +156,10 @@ class _Inflight:
 
 class UnsupportedDrainError(RuntimeError):
     """``drain_instance`` on an arch whose per-slot device state (the SSM
-    recurrent state) cannot move with the slot: a graceful drain would
-    corrupt it, so the engine refuses and leaves the cluster untouched.
-    ``fail_instance`` (crash semantics: the affected requests degrade)
-    stays available."""
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet "
-                               f"(ROADMAP queue 1 item {item})")
+    recurrent state, whisper's self-attention caches) cannot move with the
+    slot: a graceful drain would corrupt it, so the engine refuses and
+    leaves the cluster untouched.  ``fail_instance`` (crash semantics: the
+    affected requests degrade) stays available."""
 
 
 class NanoCPEngine:
@@ -187,16 +190,22 @@ class NanoCPEngine:
         only, in chunks of ``chunk_tokens`` (a positive page multiple,
         default four pages).  SSM and hybrid models pin their slots: the
         step takes the one M bucket ``max_slots_per_instance`` unless
-        ``shape_buckets`` says otherwise."""
-        transformer.check_supported(cfg)
+        ``shape_buckets`` says otherwise.  An encoder-decoder model
+        (``models/encdec.py`` params) pins its slots to exactly that one
+        bucket."""
+        self.is_encdec = cfg.is_encoder_decoder
+        if not self.is_encdec:
+            transformer.check_supported(cfg)
         quant.check_kv_dtype(kv_dtype)
-        # decode appends KV only where there is attention; per-slot SSM
-        # state pins the slot dimension of the serve state
-        self._append_tokens = cfg.has_attention
-        self._pinned_slots = cfg.family in ("ssm", "hybrid")
-        if quant.is_quantized(kv_dtype) and not cfg.has_attention:
-            raise ValueError("quantized KV pools need an attention pool; "
-                             f"{cfg.name} has none")
+        # decode appends KV only where there is attention, and never to
+        # whisper's read-only cross pools; per-slot SSM state and whisper's
+        # self-attention caches pin the slot dimension of the serve state
+        self._append_tokens = cfg.has_attention and not self.is_encdec
+        self._pinned_slots = (cfg.family in ("ssm", "hybrid")
+                              or self.is_encdec)
+        if quant.is_quantized(kv_dtype) and not self._append_tokens:
+            raise ValueError("quantized KV pools need a decoder-side paged "
+                             f"attention pool; {cfg.name} has none")
         if prefix_cache and not self._append_tokens:
             raise ValueError("prefix_cache needs an attention arch")
         if prefill_cells and not (self._append_tokens
@@ -235,7 +244,7 @@ class NanoCPEngine:
             allow_escalation=self._append_tokens)
         if not self._append_tokens:
             # nothing grows without KV appends: a caller's scheduler must
-            # not escalate either
+            # not escalate (nor, with it, relax) either
             self.scheduler.allow_escalation = False
         if admission is not None:
             self.scheduler.admission = admission
@@ -255,6 +264,12 @@ class NanoCPEngine:
             shape_buckets = ShapeBuckets(m_buckets=(max_slots_per_instance,),
                                          window=ring)
         self.shape_buckets = shape_buckets or ShapeBuckets(window=ring)
+        if (self.is_encdec
+                and self.shape_buckets.m_buckets != (max_slots_per_instance,)):
+            raise ValueError(
+                "whisper's self caches pin max_slots_per_instance slots: the "
+                f"M buckets must be ({max_slots_per_instance},), got "
+                f"{self.shape_buckets.m_buckets}")
         self.params = params
         self._dims0 = dcp.DecodeDims(
             M=max_slots_per_instance, S=0, N=1, MB=4, W=ring,
@@ -262,10 +277,16 @@ class NanoCPEngine:
             page=page_size, data_size=num_instances, tp=tp, backend=backend,
             eos=-1 if eos_token is None else int(eos_token),
             kv_dtype=kv_dtype)
-        self.decode_params = dcp.to_decode_params(cfg, params, tp)
-        self.state = dcp.init_serve_state(cfg, self._dims0, num_instances,
-                                          dtype=torch.float32,
-                                          device=self.device)
+        if self.is_encdec:
+            self.decode_params = dcp.to_encdec_decode_params(cfg, params, tp)
+            self.state = dcp.init_encdec_serve_state(
+                cfg, self._dims0, num_instances, dtype=torch.float32,
+                device=self.device)
+        else:
+            self.decode_params = dcp.to_decode_params(cfg, params, tp)
+            self.state = dcp.init_serve_state(cfg, self._dims0, num_instances,
+                                              dtype=torch.float32,
+                                              device=self.device)
         # quantized engines tag every bucket key with the kv dtype, as the
         # reference does (their serve states differ from a bf16 engine's)
         self.aot = AOTGraphEngine(self._build_step,
@@ -287,6 +308,7 @@ class NanoCPEngine:
         self.next_tok: dict = {}
         self.results: dict = {}
         self._prompts: dict = {}
+        self._dec_prefix: dict = {}
         self.finished: list = []
         self.iterations = 0
         self._inflight: _Inflight | None = None
@@ -331,6 +353,9 @@ class NanoCPEngine:
 
     def add_request(self, prompt_tokens, max_new_tokens: int,
                     now: float | None = None) -> int:
+        if self.is_encdec:
+            raise ValueError(f"{self.cfg.name} takes audio requests "
+                             "(add_audio_request)")
         now = self._now() if now is None else now
         rid = len(self._prompts)
         self._prompts[rid] = list(map(int, prompt_tokens))
@@ -342,8 +367,38 @@ class NanoCPEngine:
         self.results[rid] = GenResult(rid, self._prompts[rid])
         return rid
 
-    def add_audio_request(self, *args, **kwargs):
-        raise _not_ported("encoder-decoder (whisper) serving", 12)
+    def add_audio_request(self, frames, dec_prefix_tokens,
+                          max_new_tokens: int, now: float | None = None) -> int:
+        """Whisper: enqueue an audio request.  ``frames`` [S_enc, d_model]
+        stub frame embeddings (the source of the DCP-placed cross-attention
+        KV; S_enc is the request's prompt length), ``dec_prefix_tokens``
+        the decoder prompt.  Prefix and new tokens must fit the decoder's
+        learned positions."""
+        if not self.is_encdec:
+            raise ValueError("add_audio_request needs an encoder-decoder "
+                             f"model; {self.cfg.name} is decoder-only")
+        frames = np.asarray(frames, np.float32)
+        if frames.ndim != 2 or frames.shape[1] != self.cfg.d_model:
+            raise ValueError(f"frames must be [S_enc, {self.cfg.d_model}], "
+                             f"got {frames.shape}")
+        prefix = list(map(int, dec_prefix_tokens))
+        if not prefix:
+            raise ValueError("the decoder prefix needs at least one token")
+        if len(prefix) + max_new_tokens > self.cfg.max_target_positions:
+            raise ValueError(
+                f"decoder prefix {len(prefix)} + {max_new_tokens} new tokens "
+                f"exceed the {self.cfg.max_target_positions} learned "
+                "positions")
+        now = self._now() if now is None else now
+        rid = len(self._prompts)
+        self._prompts[rid] = frames
+        self._dec_prefix[rid] = prefix
+        self.cluster.enqueue(Request(rid=rid, prompt_len=len(frames),
+                                     max_new_tokens=max_new_tokens,
+                                     arrival=now, dec_prefix_len=len(prefix)),
+                             now)
+        self.results[rid] = GenResult(rid, prefix)
+        return rid
 
     # ------------------------------------------------------------------ #
     def _build_step(self, key):
@@ -365,7 +420,9 @@ class NanoCPEngine:
             "ret_send_idx": (I, W - 1, S), "merge_src": (I, M, W),
             "merge_round": (I, M, W), "merge_peer_row": (I, M, W),
         }
-        return dcp.build_decode_step(self.cfg, d), table_shapes
+        build = (dcp.build_encdec_decode_step if self.is_encdec
+                 else dcp.build_decode_step)
+        return build(self.cfg, d), table_shapes
 
     def _graph_inputs(self, table_shapes: dict):
         """What a bucket's graph captures: the decode params, the serve
@@ -409,6 +466,8 @@ class NanoCPEngine:
         chain keys mean an equal transcript).  The first generated token is
         sampled from the prefill logits; one batched readback serves the
         whole batch.  Returns the requests finished by a prefill-EOS."""
+        if self.is_encdec:
+            return self._prefill_batch_encdec(reqs, now)
         ps = self._scatter.ps
         page = self._dims0.page
         rows, coords, firsts = [], [], []
@@ -439,6 +498,63 @@ class NanoCPEngine:
                                       torch.cat(hs, dim=2),
                                       np.asarray(slots, np.int64).T)
         self._register_prefixes(reqs)
+        return self._finish_prefill_eos(eos_done, now)
+
+    def _prefill_batch_encdec(self, reqs: list, now: float) -> list:
+        """Whisper admission: encode the frames, run each decoder prefix
+        teacher-forced, then scatter the cross-attention KV into the paged
+        cross pools (DCP-placed) and the prefix's self-attention KV into the
+        slots' contiguous caches, each with ONE in-place call for the batch.
+
+        The encoder runs once per group of same-shape frame stacks, batched
+        over the leading axis only, so a request's encoder states (and its
+        scatters) are those of a call on it alone: bit-equal on the CPU,
+        within f32 rounding on CUDA, where cuBLAS picks its GEMM by the
+        batch's rows.  Returns the requests finished by a prefill-EOS."""
+        cfg = self.cfg
+        page = self._dims0.page
+        khs, ps = self._scatter.khs, self._scatter.ps
+        by_shape: dict = {}
+        for req in reqs:
+            by_shape.setdefault(self._prompts[req.rid].shape, []).append(req)
+        enc_of = {}
+        for grp in by_shape.values():
+            stack = torch.as_tensor(np.stack([self._prompts[r.rid]
+                                              for r in grp]),
+                                    device=self.device)
+            enc = encdec.encode(cfg, self.params, stack)
+            for b, r in enumerate(grp):
+                enc_of[r.rid] = enc[b:b + 1]
+        firsts, cross, c_coords, selfs, s_coords = [], [], [], [], []
+        for req in reqs:
+            toks = torch.as_tensor(self._dec_prefix[req.rid],
+                                   device=self.device)[None, :]
+            logits, caches = encdec.decode_forward(
+                cfg, self.params, toks, enc_of[req.rid], collect_kv=True)
+            firsts.append(logits[0, -1].argmax())
+            # [L, 1, S, Hkv, hd] -> [L, S, khs, kg*hd]
+            kc, vc = (t[:, 0].reshape(t.shape[0], t.shape[2], khs, -1)
+                      for t in caches["cross_kv"])
+            cross.append((kc, vc))
+            c_coords.append(migrate.prefill_coords(self.cluster, req.rid,
+                                                   page, ps))
+            # the self cache's chunk c holds head group c % khs: tile the
+            # groups over the ps page stripes
+            ks, vs = (t[:, 0].reshape(t.shape[0], t.shape[2], khs, -1)
+                      .repeat(1, 1, ps, 1) for t in caches["self_kv"])
+            selfs.append((ks, vs))
+            T0 = ks.shape[1]
+            inst, slot = self.cluster.slot_map[req.rid]
+            s_coords.append(np.stack([np.full(T0, inst), np.full(T0, slot),
+                                      np.arange(T0)]))
+        eos_done = self._record_first_tokens(
+            reqs, torch.stack(firsts).tolist(), now)
+        for scatter, rows, coords in (
+                (self._scatter.scatter_cross_kv, cross, c_coords),
+                (self._scatter.scatter_self_kv, selfs, s_coords)):
+            scatter(self.state, torch.cat([k for k, _ in rows], dim=1),
+                    torch.cat([v for _, v in rows], dim=1),
+                    np.concatenate(coords, axis=1))
         return self._finish_prefill_eos(eos_done, now)
 
     def _prompt_coords(self, req, hit: int, page: int, ps: int) -> np.ndarray:
@@ -727,8 +843,9 @@ class NanoCPEngine:
         instances), so its queued tails re-stage on surviving cells.
 
         Raises ``UnsupportedDrainError``, the cluster untouched, where
-        per-slot SSM state pins the slots (or the scheduler may not
-        rebalance): the MoE binding cannot move without its state."""
+        per-slot state (SSM state, whisper's self caches) pins the slots
+        (or the scheduler may not rebalance): the MoE binding cannot move
+        without its state."""
         if self.cluster.role_of(instance) == "prefill":
             records = self.cluster.fail_instance(instance)
             if self.prefix_trie is not None:
@@ -740,8 +857,9 @@ class NanoCPEngine:
                 and getattr(self.scheduler, "allow_rebalance", True)):
             raise UnsupportedDrainError(
                 f"drain_instance({instance}): {self.cfg.name} pins per-slot "
-                "SSM state, so the MoE binding cannot move without a slot "
-                "state migration (fail_instance gives crash semantics)")
+                "device state, so the MoE binding cannot move without a "
+                "slot state migration (fail_instance gives crash "
+                "semantics)")
         # cache holds on the leaver go first: cache-only frames free at
         # once, frames shared with live requests become theirs and move
         # with them (not rolled back on a failed drain: losing a cache
@@ -856,8 +974,9 @@ class NanoCPEngine:
                 # from a dispatch-time finish): the whole context is lost
                 ranges = [(0, req.prompt_len + req.generated)]
             lost = sum(n for _, n in ranges)
-            # lost KV is re-prefilled, but never when pinned per-slot SSM
-            # state died with the slot (nor without KV at all)
+            # lost KV is re-prefilled, but never when pinned per-slot state
+            # died with the slot, nor without decode-side KV (whisper's lost
+            # cross KV degrades the request)
             recoverable = (self._append_tokens
                            and not (rec.slot_lost and self._pinned_slots))
             split = None

@@ -5,7 +5,7 @@ card:
 
   * the decode step is capturable: no op waits on the device or sizes its
     output by values (``NoHostSync``), for every decoder-only variant, SSM
-    and hybrid included;
+    and hybrid included, and for the encoder-decoder (whisper) step;
   * the static-buffer contract: a step on the engine's own table buffers
     and state tensors, refilled in place, equals a step on fresh tensors;
   * the elastic-join prewarm leaves the pools bit-equal;
@@ -26,7 +26,7 @@ from repro_torch.configs import CONFIGS, reduced
 from repro_torch.core import routing
 from repro_torch.core.aot import AOTGraphEngine, InPlaceAudit
 from repro_torch.core.bucketing import CPBuckets, ShapeBuckets
-from repro_torch.models import transformer
+from repro_torch.models import init_params
 from repro_torch.serving.engine import NanoCPEngine
 
 aten = torch.ops.aten
@@ -117,27 +117,35 @@ CAPTURE_CASES = {
     "minicpm3-fp8": ("minicpm3-4b", {}, {"kv_dtype": "fp8"}),
     "mamba2": ("mamba2-370m", {}, {}),
     "jamba": ("jamba-v0.1-52b", MOE_OVER, {}),
+    "whisper": ("whisper-base", {}, {}),
 }
 
 
 def _small_engine(arch, over, kw, pipeline=True):
     """(2, 2), a prompt past the CP edge (degree 2: rows route over the
     ring) and a short one, after one step (admission + the first decode
-    dispatch).  SSM models keep the engine's one pinned M bucket."""
+    dispatch).  SSM models and whisper keep the engine's one pinned M
+    bucket; whisper's prompts are audio frames with 3-token decoder
+    prefixes."""
     cfg = reduced(CONFIGS[arch], vocab_size=256, **over)
-    params = transformer.init_params(cfg, seed=0, device="cpu",
-                                     dtype=torch.float32)
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    pinned = cfg.family in ("ssm", "hybrid") or cfg.is_encoder_decoder
     eng = NanoCPEngine(cfg, params, num_instances=2, instances_per_node=2,
                        kv_capacity_tokens=1024, page_size=16, tp=2,
                        buckets=CPBuckets(edges=(48,), degrees=(1, 2)),
-                       shape_buckets=None if cfg.family in ("ssm", "hybrid")
+                       shape_buckets=None if pinned
                        else ShapeBuckets(m_buckets=(1, 2, 4),
                                          s_buckets=(0, 1, 2, 4), window=2),
                        max_slots_per_instance=4, pipeline=pipeline,
                        device="cpu", **kw)
     rng = np.random.default_rng(0)
     for L in (80, 20):
-        eng.add_request(rng.integers(0, 256, (L,)), max_new_tokens=6)
+        if cfg.is_encoder_decoder:
+            eng.add_audio_request(rng.standard_normal((L, cfg.d_model)),
+                                  rng.integers(0, 256, (3,)),
+                                  max_new_tokens=6)
+        else:
+            eng.add_request(rng.integers(0, 256, (L,)), max_new_tokens=6)
     eng.step()
     return eng
 
@@ -222,8 +230,7 @@ def test_join_prewarm_leaves_pools_bit_equal():
     (new cache entries, none counted online) and leaves every pool byte
     as it was."""
     cfg = reduced(CONFIGS["tinyllama-1.1b"], vocab_size=256)
-    params = transformer.init_params(cfg, seed=0, device="cpu",
-                                     dtype=torch.float32)
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
     eng = NanoCPEngine(cfg, params, num_instances=8, instances_per_node=4,
                        kv_capacity_tokens=4096, page_size=16, tp=1,
                        buckets=CPBuckets(edges=(64, 160), degrees=(1, 2, 3)),
@@ -289,8 +296,7 @@ def test_graphs_are_cuda_only():
     """Asking a CPU engine for CUDA graphs raises; the CPU engine runs the
     eager step and its cache holds step functions."""
     cfg = reduced(CONFIGS["tinyllama-1.1b"], num_layers=2, vocab_size=128)
-    params = transformer.init_params(cfg, seed=0, device="cpu",
-                                     dtype=torch.float32)
+    params = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
     kw = dict(num_instances=1, instances_per_node=1, kv_capacity_tokens=128,
               tp=1, device="cpu")
     with pytest.raises(ValueError, match="cuda_graphs"):

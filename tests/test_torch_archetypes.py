@@ -117,17 +117,18 @@ def test_init_and_conversion_carry_bias_and_norm_leaves(arch):
 
 
 def test_only_ssm_and_encoder_decoder_configs_raise():
-    """Every decoder-only config of the reference is served, SSM and
-    hybrid ones included since item 11; only encoder-decoder configs
-    raise, naming their item."""
+    """Every config of the reference is registered in the port, equal to
+    it, and served: decoder-only ones (SSM and hybrid since item 11) by
+    the decoder-only trunk, encoder-decoder ones (item 12) by
+    ``models/encdec.py``, which the decoder-only trunk refers them to."""
     for name, jcfg in JCONFIGS.items():
         cfg = ModelConfig(**dataclasses.asdict(jcfg))
+        assert CONFIGS[name] == cfg
         if cfg.is_encoder_decoder:
-            with pytest.raises(NotImplementedError, match="item 12"):
+            with pytest.raises(ValueError, match="models.encdec"):
                 transformer.check_supported(cfg)
         else:
             transformer.check_supported(cfg)
-            assert name in CONFIGS
 
 
 def test_moe_ffn_runs_only_the_filled_bins():

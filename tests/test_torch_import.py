@@ -84,10 +84,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_paths_raise_not_implemented():
-    from dataclasses import replace
-
+    """The engine's guards (a bad kv dtype or backend; an audio request to
+    a decoder-only engine, a token request to an encoder-decoder one; a
+    decoder prefix past the learned positions), and every archetype the
+    reference serves builds: SSM and hybrid (item 11), and encoder-decoder
+    whisper (item 12), whose engine enqueues an audio request."""
     from repro_torch.configs import CONFIGS, reduced
-    from repro_torch.models import transformer
+    from repro_torch.models import encdec, transformer
     from repro_torch.serving.engine import NanoCPEngine
 
     cfg = reduced(CONFIGS["tinyllama-1.1b"], num_layers=2, vocab_size=256)
@@ -100,11 +103,8 @@ def test_unported_paths_raise_not_implemented():
     with pytest.raises(ValueError, match="backend"):
         NanoCPEngine(cfg, params, **kw, backend="nccl")
     eng = NanoCPEngine(cfg, params, **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        eng.add_audio_request(None, [])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        transformer.init_params(replace(cfg, is_encoder_decoder=True),
-                                device="cpu")
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        eng.add_audio_request(np.zeros((4, cfg.d_model)), [1], 2)
     # SSM and hybrid configs are ported (item 11): both build and serve
     for arch in ("mamba2-370m", "jamba-v0.1-52b"):
         scfg = reduced(CONFIGS[arch], vocab_size=256)
@@ -112,7 +112,27 @@ def test_unported_paths_raise_not_implemented():
                                           dtype=torch.float32)
         NanoCPEngine(scfg, sparams, num_instances=2, instances_per_node=2,
                      kv_capacity_tokens=128, tp=2, device="cpu")
-
+    # encoder-decoder (item 12): a reduced whisper engine builds, enqueues
+    # an audio request, refuses token prompts and quantized pools
+    wcfg = reduced(CONFIGS["whisper-base"], vocab_size=256)
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        transformer.init_params(wcfg, device="cpu")
+    wparams = encdec.init_params(wcfg, seed=0, device="cpu",
+                                 dtype=torch.float32)
+    wkw = dict(num_instances=2, instances_per_node=2, kv_capacity_tokens=256,
+               tp=2, max_slots_per_instance=2, device="cpu")
+    with pytest.raises(ValueError, match="quantized"):
+        NanoCPEngine(wcfg, wparams, **wkw, kv_dtype="fp8")
+    weng = NanoCPEngine(wcfg, wparams, **wkw)
+    rid = weng.add_audio_request(np.zeros((40, wcfg.d_model)), [1, 2, 3],
+                                 max_new_tokens=4)
+    assert [r.rid for r in weng.cluster.waiting] == [rid]
+    assert weng.cluster.waiting[0].dec_prefix_len == 3
+    with pytest.raises(ValueError, match="audio"):
+        weng.add_request([1, 2, 3], max_new_tokens=4)
+    with pytest.raises(ValueError, match="positions"):
+        weng.add_audio_request(np.zeros((40, wcfg.d_model)), [1] * 60,
+                               max_new_tokens=8)
 
 
 @pytest.mark.parametrize("arch,backend", [("minicpm3-4b", "routed"),
