@@ -3,11 +3,15 @@ reference it is held against).
 
 Same module layout as ``repro``: ``configs`` (model configs), ``kernels``
 (hand-written Hopper kernels with their plain torch versions, ``ops``
-dispatch by tensor device), ``models`` (the prefill forward of the dense
-GQA, MLA, MoE, SSM and hybrid families, and the encoder-decoder's encode
-and decoder passes), ``core`` (host control plane, the four-phase DCP
-decode step on a virtual (instance, tp) mesh, prefill KV scatter, the
-per-bucket step cache) and ``serving`` (``NanoCPEngine``).  Imports torch and numpy only.
+dispatch by tensor device; the flash forward is an op with a gradient),
+``models`` (the prefill and train forward and the loss of the dense GQA,
+MLA, MoE, SSM and hybrid families, and the encoder-decoder's encode and
+decoder passes), ``core`` (host control plane, the four-phase DCP decode
+step on a virtual (instance, tp) mesh, prefill KV scatter, the
+per-bucket step cache), ``serving`` (``NanoCPEngine``) and ``training``
+(AdamW, the train steps with remat, microbatches and a virtual data
+axis, checkpoints in the reference's format, synthetic data).  Imports
+torch and numpy only.
 """
 from __future__ import annotations
 

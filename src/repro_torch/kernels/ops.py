@@ -30,6 +30,10 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     """Causal attention with LSE.  See ``ref.flash_attention``.
 
     q [B, Sq, Hq, Dk]; k/v [B, Skv, Hkv, D(v)] (GQA: Hkv divides Hq).
+    Differentiable: a CUDA tensor goes to the ``repro_torch::flash_fwd`` op
+    (the kernel, with ``flash_backward`` as its gradient) whether or not
+    grads are needed; a CPU tensor to the plain version, which autograd
+    differentiates, as the reference's CPU path does.
     """
     if _plain(q):
         if k.shape[1] >= BLOCKWISE_THRESHOLD and k.shape[1] % 512 == 0:

@@ -1,6 +1,6 @@
 """Model substrate (port of ``repro.models``): the decoder-only trunk
 (``transformer``) and the encoder-decoder one (``encdec``), with the
-architecture-generic init dispatch."""
+architecture-generic init and loss dispatch."""
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
@@ -12,3 +12,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, **kw) -> dict:
         return encdec.init_params(cfg, seed, **kw)
     return transformer.init_params(cfg, seed, **kw)
 
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, **kw):
+    """batch: {"tokens", "targets"} (+ "frames") -> mean cross-entropy."""
+    if cfg.is_encoder_decoder:
+        return encdec.loss_fn(cfg, params, batch["frames"], batch["tokens"],
+                              batch["targets"], **kw)
+    return transformer.loss_fn(cfg, params, batch["tokens"], batch["targets"],
+                               **kw)

@@ -21,7 +21,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 from . import attention as attn_mod
 from . import layers
-from .transformer import block_slice
+from .transformer import block_slice, cross_entropy
 
 
 def _stack(trees: list):
@@ -118,12 +118,20 @@ def decode_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def forward(cfg: ModelConfig, params: dict, frames, tokens, *,
-            device="cuda") -> torch.Tensor:
+            remat: str = "none", device="cuda") -> torch.Tensor:
     """Full encoder-decoder pass -> logits [B, S_dec, Vp].  ``params`` must
-    live on ``device``; frames and tokens are moved there."""
+    live on ``device``; frames and tokens are moved there.  ``remat`` is
+    accepted and ignored, as the reference's ``forward`` does."""
     dev = resolve_device(device)
     frames = torch.as_tensor(frames, device=dev)
     tokens = torch.as_tensor(tokens, device=dev)
     logits, _ = decode_forward(cfg, params, tokens,
                                encode(cfg, params, frames))
     return logits
+
+
+def loss_fn(cfg: ModelConfig, params: dict, frames, tokens, targets, *,
+            remat: str = "none", device="cuda") -> torch.Tensor:
+    """Mean next-token cross-entropy of the decoder over the frames."""
+    logits = forward(cfg, params, frames, tokens, remat=remat, device=device)
+    return cross_entropy(logits, targets)

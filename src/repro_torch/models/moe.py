@@ -10,8 +10,8 @@ Two execution paths, as in the reference:
 
 Every function takes any leading batch dims before the token dim: a
 leading dim groups independently (the reference ``vmap``s ``moe_ffn``
-over batch rows).  The load-balance loss is training and is not ported
-yet (ROADMAP queue 1 item 15).
+over batch rows).  ``aux_load_balance_loss`` is the reference's training
+auxiliary loss (which no loss of either package calls).
 """
 from __future__ import annotations
 
@@ -186,3 +186,15 @@ def moe_ffn_batched(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
                          f"CHUNK={CHUNK}")
     return torch.cat([moe_ffn(cfg, p, x[:, c:c + CHUNK])
                       for c in range(0, S, CHUNK)], dim=1)
+
+
+def aux_load_balance_loss(cfg: ModelConfig, router_w: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss (training): x [T, D] ->
+    E * sum_e (share of top-k picks on expert e) * (mean probability of e),
+    with the top k taken as ``router_topk`` takes them."""
+    probs = torch.softmax(x.float() @ router_w, dim=-1)            # [T, E]
+    idx = torch.argsort(probs, dim=-1, descending=True,
+                        stable=True)[:, :cfg.num_experts_per_tok]
+    onehot = F.one_hot(idx, cfg.num_experts).float().sum(1)
+    return cfg.num_experts * (onehot.mean(0) * probs.mean(0)).sum()

@@ -1,5 +1,6 @@
-"""Decoder-only trunk: init + prefill forward for the dense GQA, MLA, MoE,
-SSM (Mamba-2) and hybrid (Jamba) families (port of
+"""Decoder-only trunk: init, the prefill and train forward (with the
+reference's remat policies) and the loss, for the dense GQA, MLA, MoE, SSM
+(Mamba-2) and hybrid (Jamba) families (port of
 ``repro/models/transformer.py``).
 
 The trunk is ``cfg.num_blocks`` repeats of a ``cfg.block_period``-layer
@@ -12,7 +13,10 @@ encoder-decoder family has its own trunk (``models/encdec.py``;
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
@@ -151,9 +155,38 @@ def apply_layer(cfg: ModelConfig, kind: dict, lp: dict, x: torch.Tensor,
     return x, aux
 
 
+# --------------------------------------------------------------------------- #
+# remat policies (the reference's ``jax.checkpoint`` around its scan body)
+# --------------------------------------------------------------------------- #
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the 2-D weight products,
+    recompute the rest (``bmm``, the flash op, norms, elementwise)."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if func in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(remat: str, fn, *args):
+    """``fn(*args)`` under the remat policy ``remat``: "none" keeps every
+    activation for the backward, "full" recomputes ``fn`` in the backward,
+    "dots" recomputes all but its ``aten.mm`` / ``aten.addmm`` outputs."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=functools.partial(
+                                   ckpt.create_selective_checkpoint_contexts,
+                                   _save_dots))
+    raise ValueError(f"remat must be none, dots or full, got {remat!r}")
+
+
 def forward(cfg: ModelConfig, params: dict, tokens, *,
             positions: torch.Tensor | None = None, collect_kv: bool = False,
-            device="cuda"):
+            remat: str = "none", device="cuda"):
     """tokens [B, S] -> (logits [B, S, Vp], caches).
 
     ``caches`` (with ``collect_kv``) is a list over the block pattern of
@@ -162,6 +195,12 @@ def forward(cfg: ModelConfig, params: dict, tokens, *,
     layer ``{"ssm": (conv_state [nb, B, W-1, conv_dim], ssm_state
     [nb, B, nh, hd, ns])}``, as the JAX scan stacks them; otherwise None.
     ``params`` must live on ``device``; the tokens are moved there.
+
+    ``remat`` ("none" | "dots" | "full") applies to each block of
+    ``cfg.block_pattern()``, as the reference's checkpointed scan body; under
+    "full" a block of several layers (Jamba's 8) also checkpoints each
+    layer, so the backward holds one layer's internals at a time.  It
+    changes no value, only what the backward keeps and recomputes.
     """
     check_supported(cfg)
     tokens = torch.as_tensor(tokens, device=resolve_device(device))
@@ -170,12 +209,25 @@ def forward(cfg: ModelConfig, params: dict, tokens, *,
         positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     x = layers.embed_tokens(params["embed"], tokens)
     pattern = cfg.block_pattern()
+    nested = remat == "full" and len(pattern) > 1 and not collect_kv
+
+    def block_fn(x, bp):
+        auxes = []
+        for li, kind in enumerate(pattern):
+            layer = functools.partial(apply_layer, cfg, kind)
+            if nested:
+                x, aux = remat_call("full", layer, bp["layers"][li], x,
+                                    positions, collect_kv)
+            else:
+                x, aux = layer(bp["layers"][li], x, positions, collect_kv)
+            auxes.append(aux)
+        return x, auxes
+
     auxes = [[] for _ in pattern]
     for bi in range(cfg.num_blocks):
-        bp = block_slice(params["blocks"], bi)
-        for li, kind in enumerate(pattern):
-            x, aux = apply_layer(cfg, kind, bp["layers"][li], x, positions,
-                                 collect_kv)
+        x, block_aux = remat_call(remat, block_fn, x,
+                                  block_slice(params["blocks"], bi))
+        for li, aux in enumerate(block_aux):
             auxes[li].append(aux)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     logits = layers.apply_head(cfg, params["head"], params["embed"], x)
@@ -186,3 +238,21 @@ def forward(cfg: ModelConfig, params: dict, tokens, *,
                for name in per_layer[0]}
               for per_layer in auxes]
     return logits, caches
+
+
+def cross_entropy(logits: torch.Tensor, targets) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32: logsumexp - gold logit
+    (over the padded vocab, as the reference)."""
+    logits = logits.float()
+    targets = torch.as_tensor(targets, device=logits.device).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
+def loss_fn(cfg: ModelConfig, params: dict, tokens, targets, *,
+            remat: str = "none", device="cuda") -> torch.Tensor:
+    """Mean next-token cross-entropy (targets = tokens shifted by the
+    caller)."""
+    logits, _ = forward(cfg, params, tokens, remat=remat, device=device)
+    return cross_entropy(logits, targets)

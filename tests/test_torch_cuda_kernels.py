@@ -7,7 +7,10 @@ shapes at MiniCPM3-4B's width (paged decode over the 288-wide latent with
 G = 40 and v = k[..., :256]; flash prefill at Dk 96 / Dv 64 / 40 heads),
 DeepSeek-V3's (the 576-wide latent, v = k[..., :512], at G 128 in head
 groups, and at the group boundaries G 32, 33, 64; flash prefill at 128
-heads of Dk 192 / Dv 128) and Qwen1.5's MHA decode (G 1, hd 64).
+heads of Dk 192 / Dv 128) and Qwen1.5's MHA decode (G 1, hd 64).  The
+flash op's gradients (the ported ``flash_backward``) against autograd
+through the plain version at ragged tails, Dk != Dv, a keyless row and
+bf16, and a reduced train step through the kernel against the plain path.
 
 These tests need an NVIDIA GPU and ``nvcc`` (marker ``cuda``); without a
 card they skip.  Run them on the card with
@@ -608,3 +611,89 @@ def test_flash_ds_prefill_shape(B, Sq, Skv, kv_len, q_offset, dtype):
     and ragged kv lengths."""
     _flash_case(B, Sq, Skv, 128, 128, 192, 128, dtype, kv_len, q_offset, True,
                 seed=Sq + q_offset)
+
+
+# --------------------------------------------------------------------------- #
+# the flash op under autograd (its backward: the ported flash_backward)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,Dk,Dv,kv_len,q_offset,causal", [
+    (1, 128, 128, 4, 2, 64, 64, None, 0, True),        # the reference's grid
+    (2, 130, 130, 8, 2, 64, 64, None, 0, True),        # ragged tails
+    (1, 200, 300, 4, 4, 40, 24, None, 100, True),      # Dk != Dv, q offset
+    (2, 8, 200, 8, 8, 64, 64, None, 0, False),         # a cross call
+    (2, 50, 200, 4, 2, 32, 32, [0, 77], 0, False),     # a row with no key
+    (1, 257, 257, 40, 40, 96, 64, None, 0, True),      # MLA's heads
+])
+def test_flash_op_grads_vs_plain(B, Sq, Skv, Hq, Hkv, Dk, Dv, kv_len,
+                                 q_offset, causal, dtype):
+    """The op's (dq, dk, dv) against autograd through the plain version,
+    max|d| <= tol * max|ref|; one kernel launch; a keyless row's grads 0
+    (the plain version averages v there, so it takes a zero cotangent)."""
+    g = torch.Generator(device="cuda").manual_seed(Sq * 3 + Dk)
+    mk = lambda *s: torch.randn(*s, device="cuda", generator=g).to(dtype)
+    qkv = [mk(B, Sq, Hq, Dk), mk(B, Skv, Hkv, Dk), mk(B, Skv, Hkv, Dv)]
+    qkv = [t.requires_grad_() for t in qkv]
+    do = mk(B, Sq, Hq, Dv)
+    kl = (None if kv_len is None
+          else torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+    kw = dict(causal=causal, kv_len=kl, q_offset=q_offset)
+    n0 = fa.LAUNCHES
+    got = torch.autograd.grad(fa.flash_attention(*qkv, **kw)[0], qkv, do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == n0 + 1
+    seen = do if kl is None else do * (kl > 0).to(dtype)[:, None, None, None]
+    want = torch.autograd.grad(ref.flash_attention(*qkv, **kw)[0], qkv, seen)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=TOL[dtype] * b.float().abs().max().item())
+    if kl is not None:
+        for a in got:
+            assert not a[kl == 0].any()
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "minicpm3-4b",
+                                  "whisper-base"])
+def test_reduced_train_step_kernel_vs_plain(arch):
+    """One value-and-grad of a reduced model (f32, remat "dots") through
+    the kernel against the same with ``FORCE_IMPL = "ref"``: the loss
+    within 1e-5 relative, each leaf within 1e-3 of its largest entry, and
+    two flash launches per attention call (forward and recompute)."""
+    from repro_torch import models
+    from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.training import train_step
+    from repro_torch.training.tree import leaves
+
+    cfg = reduced(CONFIGS[arch])
+    params = models.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    g = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64), generator=g),
+             "targets": torch.randint(0, cfg.vocab_size, (2, 64), generator=g)}
+    if cfg.is_encoder_decoder:
+        batch = {"frames": torch.randn(2, 64, cfg.d_model, generator=g),
+                 "tokens": batch["tokens"][:, :32],
+                 "targets": batch["targets"][:, :32]}
+    loss_fn = train_step.make_loss_fn(cfg, remat="dots", device="cuda")
+    n0 = fa.LAUNCHES
+    loss, grads = train_step.value_and_grad(loss_fn, params, batch)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES - n0
+    ops.FORCE_IMPL = "ref"
+    try:
+        rloss, rgrads = train_step.value_and_grad(loss_fn, params, batch)
+    finally:
+        ops.FORCE_IMPL = None
+    if cfg.is_encoder_decoder:      # remat is ignored there, as in the reference
+        assert launches == cfg.num_encoder_layers + 2 * cfg.num_layers
+    else:
+        assert launches == 2 * cfg.num_layers
+    assert abs(float(loss) - float(rloss)) <= 1e-5 * abs(float(rloss))
+    # a leaf whose gradient is zero in exact arithmetic (an attention k
+    # bias: softmax ignores a shift shared by a row's scores) holds only
+    # rounding noise: its scale is floored at 1e-4 of the largest entry
+    floor = 1e-4 * max(b.abs().max().item() for b in leaves(rgrads))
+    for a, b in zip(leaves(grads), leaves(rgrads)):
+        torch.testing.assert_close(
+            a, b, rtol=0, atol=1e-3 * max(b.abs().max().item(), floor))
