@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py              # every phase, then the result line
     python3 chip_smoke.py --kernels    # phases 1-2 only, no result line
+    python3 chip_smoke.py --launch     # phases 1 and 17 only, no result line
 
 Phases, each printing one JSON line:
 
@@ -199,10 +200,39 @@ Phases, each printing one JSON line:
                and one profiled (flash's share of device time); one bf16
                train step of each of the 11 reduced configs, their f32 loss
                on the card within 1e-4 of the CPU's.
- 17. summary — the script's seconds, ``{"kernels": [...]}`` (with the
+ 17. launch  — the launch layer.  Its dry run (every assigned config and
+               DeepSeek-V3 at each applicable shape, single pod, on the
+               meta device: ``python -m repro_torch.launch.dryrun``) runs
+               in six processes at once while the card idles; every cell
+               must pass and the device allocator must not move.  Then three decode cells
+               built by ``launch.cells.build_decode_cell`` on the virtual
+               production mesh (I 16, TP 16) and materialised on the card
+               (bf16 ``init_params(seed=0)``, seeded pools, the planner's
+               tables): (a) TinyLlama-1.1B at 524,288 tokens x 2 requests
+               (CP 8, 13 routing rounds), (b) TinyLlama ``decode_32k`` cut
+               from 128 requests to 32 (CP 1; 128 need 108.6 GB of bf16
+               pools), (c) DeepSeek-V3 (1 of 60 layers) at 524,288 x 2.
+               Each runs bf16 and fp8 weights (``quantize_decode_weights``,
+               cast to bf16 at use), (a) also raw fp8 pools without
+               scales.  Gates per run: every paged call within 2e-2 x
+               max|ref| of its plain version on the same inputs; the
+               step's logits within 2e-2 x max|ref| of its ``FORCE_IMPL =
+               "ref"`` twin, or within twice the step's own noise floor
+               where that is larger (the plain step against itself with
+               its attention outputs moved by about one bf16 ulp: 3.5-4.1%
+               on TinyLlama's 22 bf16 layers); tokens equal but for
+               near-ties; the model's attention layers in paged launches,
+               pools written in place, the step repeated and a CUDA graph
+               replay bit-equal to eager, and fp8 weights bit-equal to the
+               same weights dequantized before the step.
+               Rows: eager and replayed step ms, weight and pool bytes,
+               peak GB, fp8's |dlogit| and token agreement against bf16,
+               and the paged kernel at the cell's call (kernel, bound and
+               plain ms).
+ 18. summary — the script's seconds, ``{"kernels": [...]}`` (with the
                flash op's row on the train path, its backward in the
-               ``bwd_*`` keys), then the last line
-               ``{"ok": true, "device": {...}}``.
+               ``bwd_*`` keys, and the launch cells' paged rows), then the
+               last line ``{"ok": true, "device": {...}}``.
 
 The kernel phase also holds the paged kernel at MLA's latent shape (G 40
 q heads over one latent head of Dk 288, Dv 256 as a view; f32/bf16 q,
@@ -225,6 +255,7 @@ without the repository's ``src/`` beside it, the script fails.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gc
 import json
@@ -247,14 +278,18 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import models  # noqa: E402
-from repro_torch.configs import CONFIGS, get_config, reduced  # noqa: E402
-from repro_torch.core import dcp, moe_parallel  # noqa: E402
+from repro_torch.configs import (ASSIGNED, CONFIGS, SHAPES,  # noqa: E402
+                                 ShapeCfg, applicable_shapes, get_config,
+                                 reduced)
+from repro_torch.core import dcp, moe_parallel, routing  # noqa: E402
 from repro_torch.core.bucketing import CPBuckets, ShapeBuckets  # noqa: E402
 from repro_torch.core.scheduler import (AdmissionController,  # noqa: E402
                                         DualBalancedScheduler, _mk_plan)
 from repro_torch.kernels import build, ops, quant, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.launch import cells as launch_cells  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.models import encdec, moe, ssm, transformer  # noqa: E402
 from repro_torch.serving import slo  # noqa: E402
 from repro_torch.serving.engine import (NanoCPEngine,  # noqa: E402
@@ -1681,6 +1716,9 @@ def main() -> None:
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s})
 
+    if "--launch" in sys.argv[1:]:
+        run_launch_phase({})
+        return      # launch phase only: no other phase, no result line
     gen = torch.Generator(device=DEV).manual_seed(0)
     ksum = run_kernel_phase(gen)
     if "--kernels" in sys.argv[1:]:
@@ -1811,6 +1849,7 @@ def main() -> None:
     jamba = run_ssm_phase(ksum)["jamba"]
     whisper = run_whisper_phase(ksum)
     run_train_phase(ksum)
+    run_launch_phase(ksum)
 
     src, replaces = ("src/repro_torch/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_attention.py:36")
@@ -1877,6 +1916,17 @@ def main() -> None:
             "share_of_bound": timed["share_of_bound"],
             "bf16_ms": bf16["ms"], "bf16_bound_ms": bf16["bound_ms"],
             "bf16_library_ms": bf16["library_ms"]})
+    # the paged kernel at the launch phase's TP-16 decode cells (bf16 q;
+    # raw fp8 pages without scales in ``_rawfp8``)
+    for name in sorted(k for k in ksum if k.startswith("paged_decode_launch")):
+        r = ksum[name][-1]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "share_of_bound": r["share_of_bound"],
+            "dtype": r["dtype"], "page_dtype": r["page_dtype"]})
     # the flash op under autograd on the train path (its backward, plain
     # torch and not a kernel, in the bwd_* keys)
     kernels.append({"name": "flash_fwd_train", "route": "cuda",
@@ -3586,6 +3636,453 @@ def run_reduced_train_steps() -> None:
             fail(f"reduced train {arch}: no flash launch")
     emit({"phase": "train", "name": "reduced", "tol": REDUCED_LOSS_TOL,
           "rows": rows})
+
+
+# --------------------------------------------------------------------------- #
+# phase 17: launch — the dry run on meta, TP-16 decode cells on the card
+# --------------------------------------------------------------------------- #
+# The dry run's configs (every assigned one and DeepSeek-V3) in six
+# processes of about equal work (each config's seconds alone on the card's
+# host, PR 22: Jamba 13.1, DeepSeek-V3 11.7, Mamba2 10.8, whisper 8.1 of
+# which ~5 is the first cell's warm-up, Llama-4 7.8, MiniCPM3 6.3, Phi 4.9,
+# Chameleon 4.8, Qwen2.5 4.4, Qwen1.5 2.2, TinyLlama 1.9; 76 s in all)
+DRYRUN_GROUPS = (
+    ("jamba-v0.1-52b",),
+    ("deepseek-v3",),
+    ("mamba2-370m", "tinyllama-1.1b"),
+    ("whisper-base", "qwen2.5-14b"),
+    ("llama4-scout-17b-a16e", "phi3.5-moe-42b-a6.6b"),
+    ("minicpm3-4b", "chameleon-34b", "qwen1.5-0.5b"),
+)
+DRYRUN_ARCHS = (*ASSIGNED, "deepseek-v3")
+LAUNCH_TOL = 2e-2                    # x max|ref|: the bf16 contract
+# A one-ulp change in one bf16 attention output moves a random-weight
+# stack's logits by a few ulps: the plain step against itself with its
+# attention outputs moved by about one ulp (``ulp_noise``) differs by
+# 3.5-4.1% of max|ref| on TinyLlama's 22 layers (0.8-1.0% on DeepSeek-V3's
+# one).  The logits' gate is LAUNCH_TOL x max|ref| or FLOOR_FACTOR times
+# that floor, whichever is larger; every paged call of the step is held to
+# LAUNCH_TOL against its plain version on the same inputs.
+FLOOR_FACTOR = 2.0
+LAUNCH_TIMED = 10                    # steps timed (CUDA events, median)
+LAUNCH_CELLS = (
+    # (tag, arch, shape, depth cut, pool dtypes): the 512k x 2 cells plan
+    # CP 8 over 13 rounds; decode_32k at its full batch of 128 needs 108.6
+    # GB of bf16 pools, so it runs at 32 (CP 1, no routing)
+    ("a", "tinyllama-1.1b", ShapeCfg("decode_512k_b2", "decode", 524_288, 2),
+     None, (torch.float8_e4m3fn, None)),
+    ("b", "tinyllama-1.1b", replace(SHAPES["decode_32k"], global_batch=32),
+     None, (None,)),
+    ("c", "deepseek-v3", ShapeCfg("decode_512k_b2", "decode", 524_288, 2),
+     DS_LAYERS, (None,)),
+)
+_DRYRUN_SCRIPT = """
+import json, sys, torch
+torch.set_num_threads(1)
+torch.cuda.init()
+before = torch.cuda.memory_allocated()
+from repro_torch.launch import dryrun
+try:
+    dryrun.main(sys.argv[2:])
+    rc = 0
+except SystemExit as e:
+    rc = e.code or 0
+print(json.dumps({"dryrun_rc": rc, "cuda_before": before,
+                  "cuda_after": torch.cuda.memory_allocated()}))
+sys.exit(rc)
+"""
+
+
+_CHILDREN: list = []         # processes the script started
+
+
+def run_dryrun() -> dict:
+    """The launch layer's dry run of every assigned config and DeepSeek-V3
+    at each applicable shape (single pod) on the meta device, in the six
+    processes of DRYRUN_GROUPS at once (one CPU thread each, while the card
+    idles; beside the other phases it slowed their host-bound steps).
+    Every cell must pass, no tensor may leave meta and the device
+    allocator must not move."""
+    if sorted(a for g in DRYRUN_GROUPS for a in g) != sorted(DRYRUN_ARCHS):
+        fail("dry run: DRYRUN_GROUPS must hold each config once")
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    jobs = []
+    for i, group in enumerate(DRYRUN_GROUPS):
+        out = root / "build" / "dryrun_torch" / str(i)
+        out.mkdir(parents=True, exist_ok=True)
+        with open(out / "dryrun.log", "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", _DRYRUN_SCRIPT, "--", "--arch",
+                 *group, "--out", str(out)], env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+        _CHILDREN.append(proc)
+        jobs.append((proc, out))
+    recs, lasts = [], []
+    for proc, out in jobs:
+        proc.wait(timeout=900)
+        text = (out / "dryrun.log").read_text()
+        part = json.loads((out / "dryrun.json").read_text())
+        bad = [f"{r['arch']}/{r['shape']}: {r.get('error')}" for r in part
+               if not r["ok"]]
+        if proc.returncode or bad:
+            trace = next((r.get("trace", "") for r in part if not r["ok"]),
+                         "")
+            fail(f"dry run: rc {proc.returncode}, failed {bad}; first "
+                 f"failure's trace {trace}; output tail {text[-2000:]}")
+        recs += part
+        lasts.append(json.loads(text.strip().splitlines()[-1]))
+    secs = time.perf_counter() - t0
+    want = sum(len(applicable_shapes(get_config(a))) for a in DRYRUN_ARCHS)
+    if len(recs) != want:
+        fail(f"dry run: {len(recs)} cells, want {want}")
+    if any(x["cuda_after"] != x["cuda_before"] for x in lasts):
+        fail(f"dry run allocated device memory: {lasts}")
+    row = {"phase": "launch", "dryrun_cells": len(recs), "dryrun_s": secs,
+           "dryrun_processes": len(jobs),
+           "cuda_allocated_before": [x["cuda_before"] for x in lasts],
+           "cuda_allocated_after": [x["cuda_after"] for x in lasts],
+           "cell_s": {f"{r['arch']}/{r['shape']}": r["total_s"]
+                      for r in recs}}
+    emit(row)
+    print(f"dry run: {len(recs)} cells on meta, all passed, "
+          f"{secs:.1f} s", flush=True)
+    return row
+
+
+def stop_children() -> None:
+    for p in _CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+class FirstPagedCall:
+    """While active, wraps ``pa.paged_decode_attention`` and keeps the
+    inputs of its first call: q, block tables and lengths copied, the
+    pools by reference (a full-width cell's pools are tens of GB; every
+    layer's call has the same shape)."""
+
+    def __init__(self):
+        self.args, self.scale = None, None
+        self._launch = pa.paged_decode_attention
+
+    def _record(self, q, k, v, bt, lengths, *, scale=None, k_scale=None,
+                v_scale=None):
+        if self.args is None:
+            sc = () if k_scale is None else (k_scale, v_scale)
+            self.args = (q.clone(), k, v, bt.clone(), lengths.clone()) + sc
+            self.scale = scale
+        return self._launch(q, k, v, bt, lengths, scale=scale,
+                            k_scale=k_scale, v_scale=v_scale)
+
+    def __enter__(self):
+        pa.paged_decode_attention = self._record
+        return self
+
+    def __exit__(self, *exc):
+        pa.paged_decode_attention = self._launch
+
+
+def fill_pools(state: dict, seed: int) -> None:
+    """Fill the serve state's pools with N(0, 1) values from a seeded
+    generator, one layer at a time (an fp8 pool through a bf16 slice)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    for name in ("k_pool", "v_pool", "kv_pool"):
+        if name not in state:
+            continue
+        pool = state[name]
+        for b in range(pool.shape[0]):
+            for a in range(pool.shape[1]):
+                sl = pool[b, a]
+                if sl.dtype == torch.bfloat16:
+                    sl.normal_(generator=gen)
+                else:
+                    sl.copy_(torch.randn(sl.shape, device=DEV, generator=gen,
+                                         dtype=torch.bfloat16))
+
+
+def gap_ok(got, want, tol_abs: float) -> tuple[int, int]:
+    """(mismatched greedy tokens, of them those where the reference's top-2
+    gap is at least ``tol_abs``: a real disagreement)."""
+    top2 = want.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    diff = got.argmax(-1) != want.argmax(-1)
+    return int(diff.sum()), int((diff & (gap >= tol_abs)).sum())
+
+
+def append_rows(state: dict, tbl: dict, cfg, dims) -> list:
+    """Where this step's KV lands in layer 0's pools: (pool name, index)
+    for each active slot's append row on each device of its page stripe."""
+    _, khs, ps = dcp.attn_tp_geometry(cfg, dims.tp)
+    act = (tbl["slot_active"] != 0).nonzero().tolist()
+    af = tbl["append_frame"].tolist()
+    ao = tbl["append_off"].tolist()
+    out = []
+    for i, m in act:
+        f, o = af[i][m], ao[i][m]
+        for j in range(dims.tp):
+            if j // khs == f % ps:
+                out += [(name, (0, 0, i, j, f // ps, o)) for name in state
+                        if name.endswith("pool")]
+    return out
+
+
+class PagedTwin:
+    """While active, every paged launch is also run through its plain
+    version on the same inputs; keeps the worst max|d| / max|ref| of out
+    and lse over the calls (the kernel held against the plain version at
+    each layer of the step)."""
+
+    def __init__(self):
+        self.worst = 0.0
+        self._launch = pa.paged_decode_attention
+
+    def _call(self, *args, **kw):
+        o, l = self._launch(*args, **kw)
+        o2, l2 = ref.paged_decode_attention(*args, **kw)
+        for a, b in ((o, o2), (l, l2)):
+            live = b > -1e29 if b is l2 else torch.ones_like(b, dtype=bool)
+            d = (a.float() - b.float())[live].abs().max()
+            m = b.float()[live].abs().max().clamp(min=1e-30)
+            self.worst = max(self.worst, float(d / m))
+        return o, l
+
+    def __enter__(self):
+        pa.paged_decode_attention = self._call
+        return self
+
+    def __exit__(self, *exc):
+        pa.paged_decode_attention = self._launch
+
+
+@contextlib.contextmanager
+def ulp_noise(seed: int):
+    """The plain paged version with its outputs moved by about one bf16 ulp
+    (relative N(0, 2**-9) noise): the step's own sensitivity to a rounding
+    change in attention, the floor for any two bf16 paths."""
+    plain, gen = ref.paged_decode_attention, torch.Generator(
+        device=DEV).manual_seed(seed)
+
+    def noisy(*args, **kw):
+        o, l = plain(*args, **kw)
+        eps = torch.randn(o.shape, device=o.device, generator=gen)
+        return (o.float() * (1 + 2.0 ** -9 * eps)).to(o.dtype), l
+    ref.paged_decode_attention = noisy
+    try:
+        yield
+    finally:
+        ref.paged_decode_attention = plain
+
+
+def launch_step_run(tag: str, step, dparams, state, tbl, n_attn: int,
+                    page_name: str, rows: list) -> dict:
+    """One decode cell's step on the card with its gates: paged launches
+    per step, pools written in place (``rows``: this step's append rows,
+    checked on a state's first step, when they still hold the fill),
+    every paged call within LAUNCH_TOL x max|ref| of its plain version on
+    the same inputs, the ``FORCE_IMPL = "ref"`` twin's logits within
+    LAUNCH_TOL x max|ref| or FLOOR_FACTOR x the step's noise floor (tokens
+    equal but for near-ties), the step repeated and a graph replay
+    bit-equal to eager; and its times (eager and replayed)."""
+    ptrs = {k: v.data_ptr() for k, v in state.items()}
+    before = [state[n][ix].clone() for n, ix in rows or ()]
+    zero_launches()
+    with FirstPagedCall() as rec:
+        out_state, nxt, logits = step(dparams, state, tbl)
+    launches = read_launches()["paged_decode"]
+    by_page = dict(pa.LAUNCHES_BY_PAGE)
+    if launches != n_attn or by_page.get(page_name) != n_attn:
+        fail(f"launch {tag}: {launches} paged launches ({by_page}), want "
+             f"{n_attn} of {page_name}")
+    if any(out_state[k] is not state[k] or state[k].data_ptr() != ptrs[k]
+           for k in state):
+        fail(f"launch {tag}: the step moved or replaced its state")
+    if rows is not None and (not rows or any(
+            torch.equal(state[n][ix], b) for (n, ix), b in zip(rows, before))):
+        fail(f"launch {tag}: the step's KV did not land in the pools")
+    logits, nxt = logits.clone(), nxt.clone()
+    ops.FORCE_IMPL = "ref"
+    try:
+        logits_ref = step(dparams, state, tbl)[2].clone()
+        with ulp_noise(0):
+            logits_noise = step(dparams, state, tbl)[2].clone()
+    finally:
+        ops.FORCE_IMPL = None
+    with PagedTwin() as twin:
+        step(dparams, state, tbl)
+    scale = float(logits_ref.abs().max())
+    dlogit = float((logits - logits_ref).abs().max())
+    floor = float((logits_noise - logits_ref).abs().max())
+    if twin.worst > LAUNCH_TOL:
+        fail(f"launch {tag}: a paged call differs from its plain version "
+             f"by {twin.worst} x max|ref|")
+    tol = max(LAUNCH_TOL * scale, FLOOR_FACTOR * floor)
+    if not dlogit <= tol:
+        fail(f"launch {tag}: |dlogit| {dlogit} vs the plain twin > {tol} "
+             f"({LAUNCH_TOL} x {scale}; noise floor {floor})")
+    miss, real = gap_ok(logits, logits_ref, tol)
+    if real:
+        fail(f"launch {tag}: {real} greedy tokens differ from the plain twin "
+             "beyond its top-2 gap")
+    # the step again, eager, then captured and replayed: all bit-equal
+    logits_eager = step(dparams, state, tbl)[2].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(dparams, state, tbl)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = step(dparams, state, tbl)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not (torch.equal(g_out[2], logits) and torch.equal(logits_eager,
+                                                          logits)):
+        fail(f"launch {tag}: the repeated or replayed step's logits are not "
+             "bit-equal to the eager step's")
+    eager_ms = time_ms(lambda: step(dparams, state, tbl), iters=LAUNCH_TIMED,
+                       warmup=1)
+    replay_ms = time_ms(graph.replay, iters=LAUNCH_TIMED)
+    del graph, g_out
+    return {"logits": logits, "tokens": nxt, "paged_call": rec.args,
+            "paged_scale": rec.scale, "launches": launches,
+            "twin_dlogit": dlogit, "twin_scale": scale,
+            "noise_floor_dlogit": floor, "paged_calls_worst": twin.worst,
+            "twin_token_real_misses": real,
+            "twin_token_miss": miss, "eager_ms": eager_ms,
+            "replay_ms": replay_ms}
+
+
+def same_layout(a, b) -> bool:
+    """Two trees of tensors with equal shapes and dtypes, leaf for leaf."""
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype for x, y in zip(la, lb))
+
+
+def run_launch_cell(tag: str, arch: str, shape, layers, pool_dtypes,
+                    ksum: dict) -> list:
+    """Cell ``tag`` built by the port's ``build_decode_cell`` on the
+    virtual production mesh (I 16, TP 16), then materialised on the card
+    in the cell's layout: ``init_params(seed=0)`` in bf16,
+    ``to_decode_params`` (then ``quantize_decode_weights`` for the fp8
+    run); pools filled by a seeded generator; the tables of
+    ``plan_decode_cell`` uploaded.  Each pool dtype runs bf16 weights; the
+    bf16 pools (last) also run fp8 weights."""
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = replace(cfg, num_layers=layers)
+    mesh = launch_mesh.make_production_mesh()
+    cluster, tbl_np, dims = launch_cells.plan_decode_cell(
+        cfg, shape, num_instances=launch_cells.INSTANCES_PER_POD,
+        tp=mesh.shape["model"])
+    n_attn = attention_layers(cfg)
+    tbl = routing.DeviceTables(DEV).upload(tbl_np)
+    step = dcp.build_decode_step(cfg, dims)
+    torch.cuda.reset_peak_memory_stats()
+    params = models.init_params(cfg, seed=0, device=DEV, dtype=torch.bfloat16)
+    dparams = dcp.to_decode_params(cfg, params, dims.tp)
+    del params
+    free_memory()
+    base = dict(phase="launch", cell=tag, model=cfg.name,
+                layers=cfg.num_layers, shape=shape.name,
+                seq_len=shape.seq_len, batch=shape.global_batch,
+                dims={k: getattr(dims, k) for k in
+                      ("M", "S", "N", "MB", "MBT", "W", "num_frames",
+                       "rounds_used")},
+                cp_histogram={str(k): v for k, v in
+                              launch_cells._cp_hist(cluster).items()},
+                device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi())
+    out_rows = []
+    for pool_dtype in pool_dtypes:
+        kvd = pool_dtype or torch.bfloat16
+        page = str(kvd).replace("torch.", "")
+        state = dcp.init_serve_state(cfg, dims, dims.data_size, dtype=kvd,
+                                     device=DEV)
+        fill_pools(state, seed=1)
+        rows = append_rows(state, tbl, cfg, dims)
+        weights = ("bf16",) if pool_dtype is not None else ("bf16", "fp8")
+        bf16_run = None
+        for wname in weights:
+            wdt = torch.float8_e4m3fn if wname == "fp8" else None
+            cell = launch_cells.build_decode_cell(
+                cfg, shape, mesh, kv_dtype=pool_dtype, weight_dtype=wdt)
+            if wname == "fp8":
+                dparams = dcp.quantize_decode_weights(dparams)
+                free_memory()       # the bf16 copies of the cast leaves
+            if not (same_layout(dparams, cell.args[0])
+                    and same_layout(state, cell.args[1])
+                    and cell.meta["dims"]["N"] == dims.N):
+                fail(f"launch {tag}: the card's weights or state differ from "
+                     "the cell's meta layout")
+            label = f"{tag} {cfg.name} {shape.name} w{wname} pools {page}"
+            r = launch_step_run(label, step, dparams, state, tbl, n_attn,
+                                page, rows if bf16_run is None else None)
+            row = {**base, "weights": wname, "pools": page,
+                   "paged_launches": r["launches"],
+                   "twin_dlogit": r["twin_dlogit"],
+                   "twin_max_ref": r["twin_scale"],
+                   "twin_token_misses_near_ties": r["twin_token_miss"],
+                   "twin_token_real_misses": r["twin_token_real_misses"],
+                   "noise_floor_dlogit": r["noise_floor_dlogit"],
+                   "paged_calls_worst_rel_err": r["paged_calls_worst"],
+                   "step_ms_eager": r["eager_ms"],
+                   "step_ms_replay": r["replay_ms"],
+                   "weight_bytes": nbytes(*_leaves(dparams)),
+                   "pool_bytes": nbytes(*_leaves(state))}
+            if wname == "fp8":
+                # the cast at use is the only difference: the same step on
+                # the fp8 weights dequantized before it is bit-equal
+                deq = dcp.dequantize_at_use(dparams)
+                if not torch.equal(step(deq, state, tbl)[2], r["logits"]):
+                    fail(f"launch {label}: fp8 weights cast at use differ "
+                         "from the same weights dequantized before the step")
+                del deq
+                act = tbl["slot_active"] != 0
+                row.update(
+                    fp8_bit_equal_to_dequantized=True,
+                    fp8_vs_bf16_dlogit=float(
+                        (r["logits"] - bf16_run["logits"]).abs().max()),
+                    fp8_vs_bf16_max_ref=float(
+                        bf16_run["logits"].abs().max()),
+                    fp8_vs_bf16_token_agreement=float(
+                        (r["tokens"] == bf16_run["tokens"])[act]
+                        .float().mean()))
+            row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            emit(row)
+            out_rows.append(row)
+            args = r.pop("paged_call")
+            if wname == "bf16":
+                name = f"paged_decode_launch_{tag}" + (
+                    "_rawfp8" if pool_dtype is not None else "")
+                krow = paged_row(args, args[0].dtype,
+                                 f"launch {tag} largest call",
+                                 scale=r["paged_scale"], name=name)
+                krow["launches"] = r["launches"]
+                emit(krow)
+                ksum.setdefault(name, []).append(krow)
+            del args, cell
+            bf16_run = r
+        del state, bf16_run, r
+        free_memory()
+    del dparams, tbl, step
+    free_memory()
+    return out_rows
+
+
+def run_launch_phase(ksum: dict) -> dict:
+    """Phase 17: the dry run, then decode cells (a), (b), (c)."""
+    atexit.register(stop_children)
+    t0 = time.perf_counter()
+    dry = run_dryrun()
+    t1 = time.perf_counter()
+    cells_out = {tag: run_launch_cell(tag, arch, shape, layers, pools, ksum)
+                 for tag, arch, shape, layers, pools in LAUNCH_CELLS}
+    emit({"phase": "launch", "dryrun_s": t1 - t0,
+          "cells_s": time.perf_counter() - t1})
+    return {"cells": cells_out, "dryrun": dry}
 
 
 def _leaves(tree):

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 from .base import ModelConfig, ShapeCfg, reduced
+from .shapes import SHAPES, applicable_shapes, skipped_shapes
 from .chameleon_34b import CONFIG as chameleon_34b
 from .deepseek_v3 import CONFIG as deepseek_v3
 from .jamba_v0_1 import CONFIG as jamba_v0_1
@@ -22,6 +23,12 @@ CONFIGS: dict[str, ModelConfig] = {c.name: c for c in [
     chameleon_34b, llama4_scout, deepseek_v3, mamba2_370m, jamba_v0_1,
     whisper_base]}
 
+# The ten assigned architectures, in the JAX package's order (deepseek-v3,
+# the paper's own backbone, is the eleventh config and not assigned).
+ASSIGNED = ["whisper-base", "qwen2.5-14b", "minicpm3-4b", "tinyllama-1.1b",
+            "qwen1.5-0.5b", "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e",
+            "chameleon-34b", "mamba2-370m", "jamba-v0.1-52b"]
+
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in CONFIGS:
@@ -29,4 +36,5 @@ def get_config(arch: str) -> ModelConfig:
     return CONFIGS[arch]
 
 
-__all__ = ["ModelConfig", "ShapeCfg", "CONFIGS", "get_config", "reduced"]
+__all__ = ["ModelConfig", "ShapeCfg", "SHAPES", "CONFIGS", "ASSIGNED",
+           "get_config", "reduced", "applicable_shapes", "skipped_shapes"]

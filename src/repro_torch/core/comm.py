@@ -108,3 +108,13 @@ def allgather_backend(buf: torch.Tensor, peer: torch.Tensor,
     jt = torch.arange(tp, device=buf.device).reshape(1, tp,
                                                      *([1] * (peer.dim() - 1)))
     return buf[peer[:, None], jt, row[:, None]]
+
+
+def routed_bytes(num_rounds: int, s_rows: int, row_bytes: int) -> int:
+    """Per-instance traffic of the routed backend (one direction)."""
+    return num_rounds * s_rows * row_bytes
+
+
+def dense_bytes(axis_size: int, m_rows: int, row_bytes: int) -> int:
+    """Per-instance traffic of the dense all-gather baseline."""
+    return (axis_size - 1) * m_rows * row_bytes

@@ -39,6 +39,8 @@ Quantized pools (``kv_dtype`` fp8/int8) store codes plus per-page float32
 scales ``k_scale``/``v_scale`` (MLA: one ``kv_scale``)
 ``[nb, n_attn, I, tp, F']``; appends quantize under the offset-0 rule
 (``kernels/quant.py``) and the paged kernel dequantizes as it reads.
+fp8 decode weights (``quantize_decode_weights``) are cast back to bf16 at
+the top of each block.
 
 SSM layers (Mamba-2, and Jamba's seven of eight) carry per-slot state
 instead of KV: conv windows ``conv_x``/``conv_B``/``conv_C``
@@ -100,6 +102,11 @@ class DecodeDims:
                                      # ``_mask_eos_slots``)
     kv_dtype: str = "bf16"           # "bf16" = pools in the model dtype;
                                      # "fp8"/"int8" = quantized pools
+    pods: int = 1                    # independent serving groups on the
+                                     # instance axis (multi-pod cells): each
+                                     # pod's data_size/pods instances hold
+                                     # all experts (the reference's `pod`
+                                     # axis); rotations stay in W windows
 
     @property
     def num_rounds(self) -> int:
@@ -226,6 +233,44 @@ def _gqa_decode_params(cfg: ModelConfig, mx: dict, tp: int) -> dict:
     return m
 
 
+_QUANT_SKIP = frozenset({"ln1", "ln2", "final_norm", "router", "q_norm",
+                         "k_norm", "kv_norm", "norm", "A_log", "D", "dt_bias",
+                         "embed", "head"})   # embeddings feed activations
+
+
+def quantize_decode_weights(dparams: dict,
+                            dtype=torch.float8_e4m3fn) -> dict:
+    """Store the large decode matrices in ``dtype`` (fp8 e4m3), the
+    reference's rule: every bfloat16 leaf of at least 2 dims and 65,536
+    values whose path names none of ``_QUANT_SKIP`` (norm scales, the SSD
+    vectors, routers, embeddings and head stay as they are).  A plain
+    cast, no scale; the step casts each block's fp8 leaves back to
+    bfloat16 at use (``build_decode_step``).  Leaves that stay are the
+    same tensors."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
+        if (tree.dim() >= 2 and tree.numel() >= 65_536
+                and not set(path) & _QUANT_SKIP
+                and tree.dtype == torch.bfloat16):
+            return tree.to(dtype)
+        return tree
+
+    return walk(dparams, ())
+
+
+def dequantize_at_use(tree):
+    """A block's fp8 leaves cast to bfloat16 (the others as they are)."""
+    if isinstance(tree, dict):
+        return {k: dequantize_at_use(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [dequantize_at_use(v) for v in tree]
+    return (tree.to(torch.bfloat16) if tree.dtype == torch.float8_e4m3fn
+            else tree)
+
+
 def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
     """Restructure prefill params for the decode step: pad q heads PER KV
     GROUP to the hybrid-sharding layout (grouped pad + chunk permutation),
@@ -311,6 +356,8 @@ def to_decode_params(cfg: ModelConfig, params: dict, tp: int) -> dict:
 # serve state (KV pools, SSM state), global [I, ...] tensors
 # =========================================================================== #
 SSM_STATE = ("conv_x", "conv_B", "conv_C", "ssm_state")
+# pool dtypes read as codes with a unit scale when no scales are kept
+RAW_CODE_DTYPES = (torch.float8_e4m3fn, torch.int8)
 
 
 def init_serve_state(cfg: ModelConfig, dims: DecodeDims, num_instances: int,
@@ -325,10 +372,15 @@ def init_serve_state(cfg: ModelConfig, dims: DecodeDims, num_instances: int,
     ``[nb, n_attn, I, tp, F']`` float32 scales set to 1 (any positive value
     works: a frame is always refilled from offset 0 before it is read).
 
+    A float8 ``dtype`` with ``kv_dtype`` "bf16" gives raw code pools, no
+    scales: the paged kernel reads them with a unit scale, as the
+    reference's does.
+
     SSM layers add their per-slot state: conv windows ``conv_x``,
     ``conv_B``, ``conv_C`` ``[nb, n_ssm, I, M, cw-1, din | ns | ns]`` in
-    ``dtype`` (never quantized) and ``ssm_state`` ``[nb, n_ssm, I, M, nh,
-    hd, ns]`` float32.  An attention-free model has no pools."""
+    ``dtype`` (bfloat16 when ``dtype`` is fp8; never quantized) and
+    ``ssm_state`` ``[nb, n_ssm, I, M, nh, hd, ns]`` float32.  An
+    attention-free model has no pools."""
     check_supported(cfg)
     check_dims(dims)
     dev = resolve_device(device)
@@ -354,8 +406,10 @@ def init_serve_state(cfg: ModelConfig, dims: DecodeDims, num_instances: int,
     if n_ssm:
         din, ns = cfg.ssm_d_inner, cfg.ssm_state
         lead = (nb, n_ssm, I, dims.M, cfg.ssm_conv_width - 1)
+        # raw fp8 pools are an attention-cache format: SSM state keeps bf16
+        cdt = torch.bfloat16 if dtype == torch.float8_e4m3fn else dtype
         for name, width in zip(SSM_STATE, (din, ns, ns)):
-            state[name] = torch.zeros(lead + (width,), dtype=dtype, device=dev)
+            state[name] = torch.zeros(lead + (width,), dtype=cdt, device=dev)
         state["ssm_state"] = torch.zeros(
             (nb, n_ssm, I, dims.M, cfg.ssm_num_heads, cfg.ssm_head_dim, ns),
             dtype=torch.float32, device=dev)
@@ -432,6 +486,34 @@ def _split_pages(bt, length, ps: int, p_j: int, mbt: int, page: int):
     toks_sel = torch.gather(torch.where(own, toks, torch.zeros_like(toks)),
                             -1, order)
     return bt_local.to(bt.dtype), toks_sel.sum(dim=-1).to(length.dtype)
+
+
+def _work_tables(dims: DecodeDims, tbl: dict, geom, Fp: int, page: int):
+    """The paged call's block tables and lengths for every virtual device:
+    (bt [I*tp*N, MB or MBT] int32, lengths [I*tp*N] int32).  With page
+    stripes (ps > 1) device j reads the pages of its stripe p_j = j // khs
+    (``_split_pages``).  Pools are flattened over (I, tp, F'): device
+    (i, j) owns pages [(i*tp + j) * F', (i*tp + j + 1) * F')."""
+    I, tp, N = dims.data_size, dims.tp, dims.N
+    _, khs, ps = geom
+    dev = tbl["work_bt"].device
+    jt = torch.arange(tp, device=dev)
+    ii1 = torch.arange(I, device=dev)
+    if ps > 1:
+        mbt = dims.MBT or dims.MB
+        per_p = [_split_pages(tbl["work_bt"], tbl["work_len"], ps, p, mbt,
+                              page) for p in range(ps)]
+        p_of = jt // khs                              # page stripe of device j
+        bt_dev = torch.stack([b for b, _ in per_p], dim=1)[:, p_of]
+        len_dev = torch.stack([n for _, n in per_p], dim=1)[:, p_of]
+    else:
+        bt_dev = tbl["work_bt"][:, None].expand(I, tp, N,
+                                                tbl["work_bt"].shape[-1])
+        len_dev = tbl["work_len"][:, None].expand(I, tp, N)
+    dev_off = ((ii1[:, None] * tp + jt[None, :]) * Fp)
+    bt_flat = (bt_dev + dev_off[..., None, None].to(bt_dev.dtype)).reshape(
+        I * tp * N, -1).to(torch.int32)
+    return bt_flat, len_dev.reshape(-1).to(torch.int32)
 
 
 def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
@@ -522,23 +604,19 @@ def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
         # to_decode_params, so ascending p concatenates in head order)
         q_grp = q_work.reshape(I, ps, khs, N, hl, dk).permute(0, 2, 3, 1, 4, 5)
         q_work = q_grp.reshape(I, khs, N, ps * hl, dk)[:, jt % khs]
-        mbt = dims.MBT or dims.MB
-        per_p = [_split_pages(tbl["work_bt"], tbl["work_len"], ps, p, mbt, page)
-                 for p in range(ps)]
-        bt_dev = torch.stack([b for b, _ in per_p], dim=1)[:, p_of]
-        len_dev = torch.stack([n for _, n in per_p], dim=1)[:, p_of]
-    else:
-        bt_dev = tbl["work_bt"][:, None].expand(I, tp, N, tbl["work_bt"].shape[-1])
-        len_dev = tbl["work_len"][:, None].expand(I, tp, N)
     Gq = q_work.shape[3]
-    # flatten (I, tp, F') into one page axis: device (i, j) owns pages
-    # [(i*tp + j) * F', (i*tp + j + 1) * F')
-    dev_off = ((ii1[:, None] * tp + jt[None, :]) * Fp)
-    bt_flat = (bt_dev + dev_off[..., None, None].to(bt_dev.dtype)).reshape(
-        I * tp * N, -1).to(torch.int32)
-    # q stays in the model dtype; unquantized pools share it
+    # the block tables depend on the tables and the pool geometry only:
+    # made once per step and shared by every layer whose pools match
+    key = ("work_tables", geom, Fp, page)
+    if key not in tbl:
+        tbl[key] = _work_tables(dims, tbl, geom, Fp, page)
+    bt_flat, len_flat = tbl[key]
+    # q stays in the model dtype; unquantized pools share it.  Raw fp8 or
+    # int8 pools without scales (a pool dtype passed to init_serve_state
+    # with kv_dtype "bf16") are read with a unit scale, as the reference's
+    # kernel upcasts them
     q_flat = q_work.reshape(I * tp * N, Gq, dk)
-    if k_scale is None:
+    if k_scale is None and k_pool.dtype not in RAW_CODE_DTYPES:
         q_flat = q_flat.to(k_pool.dtype)
     kp = k_pool.reshape(I * tp * Fp, page, kg, dk)
     ks = None if k_scale is None else k_scale.reshape(-1)
@@ -550,8 +628,8 @@ def _dcp_attention(dims: DecodeDims, q, k_pool, v_pool, new_k, new_v, tbl, *,
         vp = v_pool.reshape(I * tp * Fp, page, kg, dv)
         vs = None if v_scale is None else v_scale.reshape(-1)
     out, lse = ops.paged_decode_attention(
-        q_flat, kp, vp, bt_flat, len_dev.reshape(-1).to(torch.int32),
-        scale=scale, k_scale=ks, v_scale=vs)
+        q_flat, kp, vp, bt_flat, len_flat, scale=scale, k_scale=ks,
+        v_scale=vs)
     out = out.reshape(I, tp, N, Gq, dv)
     lse = lse.reshape(I, tp, N, Gq)
     if ps > 1:
@@ -740,6 +818,16 @@ def _ssm_layer(cfg: ModelConfig, dims: DecodeDims, lp: dict, x, sstate):
     return torch.bmm(rows, mx["out_proj"]).sum(dim=0)    # psum over tp
 
 
+def _pod_moe_ffn(cfg: ModelConfig, dims: DecodeDims, p: dict, h):
+    """The wide-EP MoE FFN, each pod's instances an expert group of their
+    own (one group when ``dims.pods`` is 1)."""
+    ep = dims.data_size // dims.pods
+    if dims.pods == 1:
+        return moe_decode_ffn(cfg, p, h, data_size=ep, tp=dims.tp)
+    return torch.cat([moe_decode_ffn(cfg, p, hp, data_size=ep, tp=dims.tp)
+                      for hp in h.chunk(dims.pods)])
+
+
 def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
     """Returns ``step(params, state, tables) -> (state, next_tokens [I, M],
     logits [I, M, Vp])`` over the whole virtual mesh.
@@ -748,13 +836,21 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
     ``init_serve_state`` pools and, for quantized pools, their scales
     (updated IN PLACE — the counterpart of the reference's donated state),
     ``tables`` the uploaded routing tables.
+
+    fp8 leaves (``quantize_decode_weights``) are cast to bfloat16 at the top
+    of each block, right after ``block_slice``, as the reference does;
+    nothing else in the step sees the storage format.
     """
     check_supported(cfg)
     check_dims(dims)
     pattern = cfg.block_pattern()
-    if cfg.is_moe and cfg.num_experts % dims.data_size:
+    if dims.data_size % dims.pods:
+        raise ValueError(f"{dims.data_size} instances do not split into "
+                         f"{dims.pods} pods")
+    ep = dims.data_size // dims.pods         # instances per expert group
+    if cfg.is_moe and cfg.num_experts % ep:
         raise ValueError(f"num_experts={cfg.num_experts} does not split over "
-                         f"{dims.data_size} instances")
+                         f"{ep} instances")
     geom = attn_tp_geometry(cfg, dims.tp)
     I, M, tp = dims.data_size, dims.M, dims.tp
     attn_layer = _mla_layer if cfg.is_mla else _attn_layer
@@ -763,11 +859,12 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
 
     def step(params, state, tbl):
         tokens = tbl["slot_token"]                                # [I, M]
-        tbl = _mask_eos_slots(dims, tbl, tokens)
+        # a copy: _dcp_attention memoizes its block tables in it
+        tbl = dict(_mask_eos_slots(dims, tbl, tokens))
         emb = params["embed"]["tok"]
         x = _embed_lookup(emb, tokens, tp).to(emb.dtype).reshape(I * M, -1)
         for bi in range(cfg.num_blocks):
-            bp = block_slice(params["blocks"], bi)
+            bp = dequantize_at_use(block_slice(params["blocks"], bi))
             ai = si = 0               # attention / SSM ordinal in the block
             for li, kind in enumerate(pattern):
                 lp = bp["layers"][li]
@@ -785,8 +882,7 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
                     continue
                 h = L.apply_norm(cfg, lp["ln2"], x)
                 if kind["ffn"] == "moe":
-                    x = x + moe_decode_ffn(cfg, lp["ffn"], h, data_size=I,
-                                           tp=tp)
+                    x = x + _pod_moe_ffn(cfg, dims, lp["ffn"], h)
                 else:
                     x = x + dense_decode_ffn(cfg, lp["ffn"], h, tp)
         x = L.apply_norm(cfg, params["final_norm"], x)
@@ -906,7 +1002,8 @@ def build_encdec_decode_step(cfg: ModelConfig, dims: DecodeDims):
             raise ValueError(f"step M {M} != the self caches' pinned slots "
                              f"{state['self_k'].shape[3]}")
         tokens, pos = tbl["slot_token"], tbl["slot_pos"]          # [I, M]
-        tbl = _mask_eos_slots(dims, tbl, tokens)
+        # a copy: _dcp_attention memoizes its block tables in it
+        tbl = dict(_mask_eos_slots(dims, tbl, tokens))
         emb, pos_dec = params["embed"]["tok"], params["embed"]["pos_dec"]
         x = _embed_lookup(emb, tokens, tp).to(emb.dtype)
         x = x + pos_dec[pos.long()].to(x.dtype)

@@ -11,7 +11,8 @@
 //   lengths      [N]      int32      valid kv tokens per row; 0 -> inactive
 //   out          [N, Hq, Dv]         q's dtype
 //   lse          [N, Hq]  float32    -1e30 for an inactive row
-//   k_scale, v_scale [P]  float32    per-page scales, quantized pools only
+//   k_scale, v_scale [P]  float32    per-page scales, quantized pools only;
+//                                    both null: raw codes, a unit scale
 //
 // The G = Hq / Hkv query heads of kv head h are q[n, h*G : (h+1)*G].  Head
 // dims go up to 640: MLA decodes over one latent "head" of kv_lora_rank +
@@ -302,8 +303,9 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(const Args a) {
   }
   if constexpr (kQuant) {
     for (int i = tid; i < npg; i += kThreads) {
-      ks_s[i] = a.k_scale[bt_s[i]];
-      vs_s[i] = a.v_scale[bt_s[i]];
+      // raw codes (no scales): each page's scale is 1
+      ks_s[i] = a.k_scale ? a.k_scale[bt_s[i]] : 1.f;
+      vs_s[i] = a.v_scale ? a.v_scale[bt_s[i]] : 1.f;
     }
   }
   // q * scale, rounded to Tq as the plain version does before the product
@@ -523,7 +525,7 @@ int round16(int x) { return (x + 15) & ~15; }
 
 template <typename Tq, typename Tkv, int kPairs, int kChunks>
 int launch(Args a, int N, cudaStream_t stream) {
-  if (sizeof(Tkv) == 1 && (a.k_scale == nullptr || a.v_scale == nullptr))
+  if (sizeof(Tkv) == 1 && ((a.k_scale == nullptr) != (a.v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int gh = a.gh;
   const int Dk4 = (a.Dk + 3) / 4, pairs = gh * ((a.Dv + 3) / 4);
@@ -614,7 +616,8 @@ int launch_q(int kv_type, const Args& a, int N, cudaStream_t s) {
 
 // q_type: 0 = float32, 1 = bfloat16 (q and out).  kv_type: 0 = pages in
 // q's type (k_scale/v_scale unused), 1 = fp8 e4m3 codes, 2 = int8 codes
-// (k_scale/v_scale [P] float32 required).  Page strides are in elements of
+// (k_scale/v_scale [P] float32, or both null for raw codes read with a
+// unit scale).  Page strides are in elements of
 // the page type; the last dim of each pool is contiguous.  pps is the
 // number of pages per split; for S = ceil(MB / pps) > 1, scratch holds
 // N*Hq*S*(Dv + 1) floats (the partials), else it may be null.  gh is the

@@ -3,6 +3,8 @@
 CUDA tensor -> the Hopper kernel (``paged_attention.py`` / ``flash_attention.py``);
                the call raises if the kernel cannot build or launch.
 CPU tensor  -> the plain torch versions in ``ref.py``.
+meta tensor -> the plain versions too: shapes only, the launch layer's dry
+               run (``launch/dryrun.py``).
 
 There is no platform probe and no fallback: a CUDA tensor never reaches
 the plain version unless ``FORCE_IMPL = "ref"`` asks for it (tests and
@@ -22,7 +24,7 @@ BLOCKWISE_THRESHOLD = 2048
 
 
 def _plain(t) -> bool:
-    return FORCE_IMPL == "ref" or t.device.type == "cpu"
+    return FORCE_IMPL == "ref" or t.device.type in ("cpu", "meta")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
@@ -36,7 +38,10 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     differentiates, as the reference's CPU path does.
     """
     if _plain(q):
-        if k.shape[1] >= BLOCKWISE_THRESHOLD and k.shape[1] % 512 == 0:
+        # meta tensors take one shape-only call: the blockwise loop would
+        # only multiply the dry run's dispatches
+        if (k.shape[1] >= BLOCKWISE_THRESHOLD and k.shape[1] % 512 == 0
+                and q.device.type != "meta"):
             return ref.flash_attention_blockwise(
                 q, k, v, causal=causal, scale=scale, q_offset=q_offset,
                 kv_len=kv_len)

@@ -43,6 +43,8 @@ Quantized pools (fp8 e4m3 or int8 pages with per-page float32 scales,
 ``quant.py``) take the Pallas kernel's quantized branch: the kernel reads
 the codes from its ring and applies each page's two scales to the scores
 and probabilities, so the pool is never dequantized in device memory.
+fp8 or int8 pages passed without scales are raw codes: the same branch
+reads them with a unit scale, as the Pallas kernel upcasts such pages.
 
 ``plain`` is the plain torch version (``ref.paged_decode_attention``);
 the wrapper runs it for CPU tensors and launches the kernel for CUDA ones.
@@ -211,9 +213,11 @@ def _check_scales(k_pages, k_scale, v_scale, device) -> int:
             raise TypeError(f"paged_decode_attention: scales given for "
                             f"unquantized {k_pages.dtype} pages")
         return 0
+    if k_scale is None and v_scale is None:
+        return code                          # raw codes: a unit scale
     if k_scale is None or v_scale is None:
         raise TypeError(f"paged_decode_attention: {k_pages.dtype} pages "
-                        "need both k_scale and v_scale")
+                        "take both k_scale and v_scale, or neither")
     P = k_pages.shape[0]
     for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
         if sc.dtype != torch.float32 or sc.shape != (P,) or sc.device != device:
@@ -231,9 +235,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     q [N, Hq, Dk]; k_pages [P, page, Hkv, Dk]; v_pages [P, page, Hkv, Dv];
     block_tables [N, MB] int32; lengths [N] int32.  q is float32 or
     bfloat16; the pages are in q's dtype, or fp8 e4m3 / int8 codes with
-    ``k_scale``/``v_scale`` [P] float32.  Any head dims up to
-    ``MAX_HEAD_DIM`` = 640 (no padding).  The pools are used in place with
-    their own strides (see the module note).  Returns out [N, Hq, Dv] in
+    ``k_scale``/``v_scale`` [P] float32 (neither: a unit scale).  Any head
+    dims up to ``MAX_HEAD_DIM`` = 640 (no padding).  The pools are used in
+    place with their own strides (see the module note).  Returns out [N, Hq, Dv] in
     q's dtype and lse [N, Hq] float32.
     """
     if q.device.type == "cpu":
@@ -270,7 +274,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
               and Dv <= Dk)
     q, block_tables, lengths = q.contiguous(), block_tables.contiguous(), lengths.contiguous()
     ks_ptr = vs_ptr = None
-    if kv_type:
+    if k_scale is not None:
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
         ks_ptr, vs_ptr = k_scale.data_ptr(), v_scale.data_ptr()
     scale = scale if scale is not None else Dk ** -0.5

@@ -110,6 +110,10 @@ def flash_attention_blockwise(q, k, v, *, causal: bool = True,
 # --------------------------------------------------------------------------- #
 # paged decode attention
 # --------------------------------------------------------------------------- #
+# the largest float32 K/V window the plain version gathers at once on a card
+PLAIN_WINDOW_BYTES = 2 << 30
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
                            scale: float | None = None, k_scale=None,
                            v_scale=None):
@@ -121,16 +125,32 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     block_tables: [N, MB] int32    page ids per row (entries past length ignored)
     lengths:      [N]     int32    valid kv tokens per row; 0 => inactive row
     k_scale, v_scale: [P] float32  per-page scales of quantized (fp8/int8)
-                  pools (``quant.py``); pass neither or both
+                  pools (``quant.py``); pass neither or both.  fp8/int8
+                  pages without scales are raw codes, upcast as they are
+                  (a unit scale), as the reference's kernel reads them
     Returns out [N, Hq, Dv] (q.dtype), lse [N, Hq] (f32; -1e30 for length 0).
 
     The q heads of a kv head are contiguous (kv-head-major), G = Hq/Hkv.
     Quantized pools are dequantized in the gathered window only: each page
-    is upcast to float32, then multiplied by its scale.
+    is upcast to float32, then multiplied by its scale.  Rows are
+    independent: a call on a device whose float32 window would pass
+    ``PLAIN_WINDOW_BYTES`` (a full-width decode cell's 4,096 rows of 16,448
+    tokens) runs in row chunks under it.
     """
     if (k_scale is None) != (v_scale is None):
         raise ValueError("paged_decode_attention: pass k_scale and v_scale "
                          "together, or neither")
+    N, MB = block_tables.shape
+    window = (MB * k_pages.shape[1] * k_pages.shape[2]
+              * (k_pages.shape[3] + v_pages.shape[3]) * 4)
+    step = max(1, PLAIN_WINDOW_BYTES // max(window, 1))
+    if N > step and q.device.type not in ("cpu", "meta"):
+        parts = [paged_decode_attention(
+            q[i:i + step], k_pages, v_pages, block_tables[i:i + step],
+            lengths[i:i + step], scale=scale, k_scale=k_scale,
+            v_scale=v_scale) for i in range(0, N, step)]
+        return (torch.cat([o for o, _ in parts]),
+                torch.cat([l for _, l in parts]))
     orig_dtype = q.dtype
     N, Hq, Dk = q.shape
     P, page, Hkv, _ = k_pages.shape

@@ -14,6 +14,8 @@ Block parameters are stacked on a leading axis (``enc_blocks``,
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from .. import resolve_device
@@ -21,7 +23,8 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 from . import attention as attn_mod
 from . import layers
-from .transformer import block_slice, cross_entropy
+from .transformer import (_identity_shard, block_slice, cross_entropy,
+                          make_generator)
 
 
 def _stack(trees: list):
@@ -38,9 +41,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     (``ln1``, ``attn``, ``ln2``, ``mlp``), ``enc_norm``, ``dec_blocks``
     (``ln1``, ``self_attn``, ``ln_x``, ``cross_attn``, ``ln2``, ``mlp``),
     ``final_norm`` and ``head``.  Matrices and embeddings in ``dtype``;
-    norms and biases float32.  The numbers differ from the JAX init's."""
+    norms and biases float32.  The numbers differ from the JAX init's.  On
+    ``meta``, shapes and dtypes only."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = make_generator(dev, seed)
     kw = {"dtype": dtype, "device": dev}
 
     def norm():
@@ -61,25 +65,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
             "head": layers.make_head_params(gen, cfg, **kw)}
 
 
-def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, *,
+           shard: Callable = _identity_shard) -> torch.Tensor:
     """frames [B, S_enc, D] stub embeddings -> encoder states [B, S_enc, D].
     Batching is over the leading axis only: a row's states do not depend on
-    the other rows."""
+    the other rows.  ``shard`` is the activation hook
+    (``models.transformer.forward``)."""
     B, S, _ = frames.shape
     positions = torch.arange(S, device=frames.device)[None, :].expand(B, S)
-    x = frames
+    x = shard(frames, "hidden")
     for i in range(cfg.num_encoder_layers):
         bp = block_slice(params["enc_blocks"], i)
         h = layers.apply_norm(cfg, bp["ln1"], x)
         x = x + attn_mod.self_attention(cfg, bp["attn"], h, positions,
                                         causal=False)
         h = layers.apply_norm(cfg, bp["ln2"], x)
-        x = x + layers.apply_mlp(cfg, bp["mlp"], h)
+        x = shard(x + layers.apply_mlp(cfg, bp["mlp"], h), "hidden")
     return layers.apply_norm(cfg, params["enc_norm"], x)
 
 
 def decode_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-                   enc_states: torch.Tensor, *, collect_kv: bool = False):
+                   enc_states: torch.Tensor, *, collect_kv: bool = False,
+                   shard: Callable = _identity_shard):
     """Teacher-forced decoder pass: tokens [B, S_dec] over ``enc_states``
     -> (logits [B, S_dec, Vp], caches).
 
@@ -90,7 +97,7 @@ def decode_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     x = layers.embed_tokens(params["embed"], tokens)
-    x = x + params["embed"]["pos_dec"][:S][None].to(x.dtype)
+    x = shard(x + params["embed"]["pos_dec"][:S][None].to(x.dtype), "hidden")
     kv = {"self_kv": ([], []), "cross_kv": ([], [])}
     for i in range(cfg.num_layers):
         bp = block_slice(params["dec_blocks"], i)
@@ -103,14 +110,15 @@ def decode_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         x = x + attn_mod.cross_attention(cfg, bp["cross_attn"], h, mem_k,
                                          mem_v)
         h = layers.apply_norm(cfg, bp["ln2"], x)
-        x = x + layers.apply_mlp(cfg, bp["mlp"], h)
+        x = shard(x + layers.apply_mlp(cfg, bp["mlp"], h), "hidden")
         if collect_kv:
             for name, pair in (("self_kv", (k, v)), ("cross_kv",
                                                      (mem_k, mem_v))):
                 kv[name][0].append(pair[0])
                 kv[name][1].append(pair[1])
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    logits = layers.apply_head(cfg, params["head"], params["embed"], x)
+    logits = shard(layers.apply_head(cfg, params["head"], params["embed"], x),
+                   "logits")
     if not collect_kv:
         return logits, None
     return logits, {name: tuple(torch.stack(t) for t in pair)
@@ -118,7 +126,8 @@ def decode_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def forward(cfg: ModelConfig, params: dict, frames, tokens, *,
-            remat: str = "none", device="cuda") -> torch.Tensor:
+            shard: Callable = _identity_shard, remat: str = "none",
+            device="cuda") -> torch.Tensor:
     """Full encoder-decoder pass -> logits [B, S_dec, Vp].  ``params`` must
     live on ``device``; frames and tokens are moved there.  ``remat`` is
     accepted and ignored, as the reference's ``forward`` does."""
@@ -126,12 +135,15 @@ def forward(cfg: ModelConfig, params: dict, frames, tokens, *,
     frames = torch.as_tensor(frames, device=dev)
     tokens = torch.as_tensor(tokens, device=dev)
     logits, _ = decode_forward(cfg, params, tokens,
-                               encode(cfg, params, frames))
+                               encode(cfg, params, frames, shard=shard),
+                               shard=shard)
     return logits
 
 
 def loss_fn(cfg: ModelConfig, params: dict, frames, tokens, targets, *,
-            remat: str = "none", device="cuda") -> torch.Tensor:
+            shard: Callable = _identity_shard, remat: str = "none",
+            device="cuda") -> torch.Tensor:
     """Mean next-token cross-entropy of the decoder over the frames."""
-    logits = forward(cfg, params, frames, tokens, remat=remat, device=device)
+    logits = forward(cfg, params, frames, tokens, shard=shard, remat=remat,
+                     device=device)
     return cross_entropy(logits, targets)

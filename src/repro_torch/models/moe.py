@@ -154,7 +154,10 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     src_token, slot_of = group_by_expert(idx, E, C)
     xb = x.reshape(-1, T, D)
     B = xb.shape[0]
-    Cb = max(1, min(C, int(bin_rows(idx, E).max())))
+    # a meta tensor has no bins to read: the full capacity, the shape the
+    # reference's eval_shape sees
+    Cb = (C if x.device.type == "meta"
+          else max(1, min(C, int(bin_rows(idx, E).max()))))
     src = src_token.reshape(B, E, C)[..., :Cb].reshape(B, E * Cb)
     expert_in = take_rows(xb, src)                              # [B, E*Cb, D]
     tok = expert_in.reshape(B, E, Cb, D).transpose(0, 1).reshape(E, B * Cb, D)

@@ -55,14 +55,20 @@ def _causal_conv(cfg: ModelConfig, p: dict, u: torch.Tensor) -> torch.Tensor:
     return F.silu(out + p["conv_b"].to(u.dtype))
 
 
-def ssd_chunked(cfg: ModelConfig, xh, dt, A, Bm, Cm, init_state=None):
+def _identity_shard(x, name: str):
+    return x
+
+
+def ssd_chunked(cfg: ModelConfig, xh, dt, A, Bm, Cm, init_state=None,
+                shard=_identity_shard):
     """Chunked SSD scan.
 
     xh: [B, S, nh, hd]; dt: [B, S, nh] (post-softplus); A: [nh] (negative);
     Bm/Cm: [B, S, ns].  Returns y [B, S, nh, hd] (xh's dtype) and the final
     state [B, nh, hd, ns] (float32).  S is padded to a chunk multiple with
     dt = 0 steps, which are the identity for the recurrence (decay 1, no
-    update).
+    update).  ``shard(t, "ssm_chunk")`` sees the chunked inputs and the
+    intra-chunk quadratic tensors, as in the reference.
     """
     Bsz, S, nh, hd = xh.shape
     ns = Bm.shape[-1]
@@ -71,10 +77,10 @@ def ssd_chunked(cfg: ModelConfig, xh, dt, A, Bm, Cm, init_state=None):
     pad = nc * cs - S
     xf, dtf, Bf, Cf = (F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
                        for t in (xh, dt, Bm, Cm))
-    xc = xf.reshape(Bsz, nc, cs, nh, hd)
-    dtc = dtf.reshape(Bsz, nc, cs, nh)
-    Bc = Bf.reshape(Bsz, nc, cs, ns)
-    Cc = Cf.reshape(Bsz, nc, cs, ns)
+    xc = shard(xf.reshape(Bsz, nc, cs, nh, hd), "ssm_chunk")
+    dtc = shard(dtf.reshape(Bsz, nc, cs, nh), "ssm_chunk")
+    Bc = shard(Bf.reshape(Bsz, nc, cs, ns), "ssm_chunk")
+    Cc = shard(Cf.reshape(Bsz, nc, cs, ns), "ssm_chunk")
 
     a_cum = torch.cumsum(dtc * A, dim=2)                     # [B, nc, cs, nh]
     a_tot = a_cum[:, :, -1, :]                               # [B, nc, nh]
@@ -83,10 +89,10 @@ def ssd_chunked(cfg: ModelConfig, xh, dt, A, Bm, Cm, init_state=None):
     causal = torch.ones(cs, cs, dtype=torch.bool, device=xh.device).tril()
     diff = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]  # [B,nc,i,j,nh]
     L = torch.exp(diff.masked_fill(~causal[:, :, None], float("-inf")))
-    CB = torch.einsum("bnis,bnjs->bnij", Cc, Bc)
-    scores = CB[..., None] * L                               # [B,nc,i,j,nh]
+    CB = shard(torch.einsum("bnis,bnjs->bnij", Cc, Bc), "ssm_chunk")
+    scores = shard(CB[..., None] * L, "ssm_chunk")           # [B,nc,i,j,nh]
     xdt = xc * dtc[..., None]                                # [B,nc,cs,nh,hd]
-    y = torch.einsum("bnijh,bnjhd->bnihd", scores, xdt)
+    y = shard(torch.einsum("bnijh,bnjhd->bnihd", scores, xdt), "ssm_chunk")
 
     # chunk boundary states: S_n = sum_j exp(a_tot - a_j) dt_j B_j (x_j)^T
     decay_to_end = torch.exp(a_tot[:, :, None, :] - a_cum)   # [B,nc,cs,nh]
@@ -110,7 +116,8 @@ def ssd_chunked(cfg: ModelConfig, xh, dt, A, Bm, Cm, init_state=None):
     return y.to(xh.dtype), h
 
 
-def ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor, init=None):
+def ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor, init=None,
+              shard=_identity_shard):
     """Full Mamba-2 block: x [B, S, D] -> (y [B, S, D], (conv_state
     [B, W-1, conv_dim], ssm_state [B, nh, hd, ns]))."""
     B, S, _ = x.shape
@@ -124,7 +131,8 @@ def ssm_block(cfg: ModelConfig, p: dict, x: torch.Tensor, init=None):
     dtp = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xh = xin.reshape(B, S, nh, hd)
-    y, h_final = ssd_chunked(cfg, xh, dtp, A, Bm, Cm, init_state=init)
+    y, h_final = ssd_chunked(cfg, xh, dtp, A, Bm, Cm, init_state=init,
+                             shard=shard)
     y = y + xh.float().to(y.dtype) * p["D"].reshape(1, 1, nh, 1).to(y.dtype)
     y = layers.rms_norm_vec(y.reshape(B, S, din) * F.silu(z), p["norm"])
     return y @ p["out_proj"], (conv_state, h_final)

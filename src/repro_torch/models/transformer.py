@@ -18,11 +18,18 @@ import functools
 import torch
 from torch.utils import checkpoint as ckpt
 
+from typing import Callable
+
 from .. import resolve_device
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from . import attention as attn_mod
 from . import layers, mla, moe, ssm
+
+
+def _identity_shard(x, name: str):
+    """The default activation hook: ``x`` unchanged."""
+    return x
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -45,11 +52,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
 
     Matrices are ``dtype`` (bf16 by default, as the JAX init makes them),
     norm scales float32.  The numbers differ from the JAX init's; tests
-    convert JAX weights with ``repro_torch.params`` instead.
+    convert JAX weights with ``repro_torch.params`` instead.  On ``meta``
+    the tensors have shapes and dtypes only (the launch layer's dry run).
     """
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = make_generator(dev, seed)
     kw = {"dtype": dtype, "device": dev}
 
     make_attn = mla.make_mla_params if cfg.is_mla else attn_mod.make_attn_params
@@ -86,6 +94,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
             "head": layers.make_head_params(gen, cfg, **kw)}
 
 
+def make_generator(dev: torch.device, seed: int):
+    """The init's seeded generator on ``dev``; None on ``meta``, which has
+    no generator and no values to draw."""
+    if dev.type == "meta":
+        return None
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -118,9 +134,10 @@ def block_slice(tree, i: int):
 # forward (prefill)
 # --------------------------------------------------------------------------- #
 def apply_layer(cfg: ModelConfig, kind: dict, lp: dict, x: torch.Tensor,
-                positions: torch.Tensor, collect_kv: bool):
+                positions: torch.Tensor, collect_kv: bool,
+                shard: Callable = _identity_shard):
     """One layer: pre-norm mixer (attention or SSD) + pre-norm FFN with
-    residuals.
+    residuals, each residual sum passed through ``shard(.., "hidden")``.
 
     Returns (x, aux) where aux holds the prefill cache material: (k, v),
     MLA's latent (c_kv, k_rope), or an SSD layer's (conv_state, ssm_state).
@@ -128,31 +145,31 @@ def apply_layer(cfg: ModelConfig, kind: dict, lp: dict, x: torch.Tensor,
     aux = {}
     h = layers.apply_norm(cfg, lp["ln1"], x)
     if kind["mixer"] == "ssm":
-        mix, states = ssm.ssm_block(cfg, lp["mixer"], h)
+        mix, states = ssm.ssm_block(cfg, lp["mixer"], h, shard=shard)
         if collect_kv:
             aux["ssm"] = states
-        x = x + mix
     elif cfg.is_mla:
         lat = mla.mla_latent(cfg, lp["mixer"], h, positions)
         if collect_kv:
             aux["kv"] = lat
-        x = x + mla.mla_self_attention(cfg, lp["mixer"], h, positions,
-                                       latent=lat)
+        mix = mla.mla_self_attention(cfg, lp["mixer"], h, positions,
+                                     latent=lat)
     else:
         q, k, v = attn_mod.qkv_proj(cfg, lp["mixer"], h, positions)
         if collect_kv:
             aux["kv"] = (k, v)
         o = ops.attention(q, k, v, causal=True)
         B, S = h.shape[:2]
-        x = x + o.reshape(B, S, -1) @ lp["mixer"]["wo"]
+        mix = o.reshape(B, S, -1) @ lp["mixer"]["wo"]
+    x = shard(x + mix, "hidden")
     if kind["ffn"] == "none":
         return x, aux
     h = layers.apply_norm(cfg, lp["ln2"], x)
     if kind["ffn"] == "moe":
-        x = x + moe.moe_ffn_batched(cfg, lp["ffn"], h)
+        f = moe.moe_ffn_batched(cfg, lp["ffn"], h)
     else:
-        x = x + layers.apply_mlp(cfg, lp["ffn"], h)
-    return x, aux
+        f = layers.apply_mlp(cfg, lp["ffn"], h)
+    return shard(x + f, "hidden"), aux
 
 
 # --------------------------------------------------------------------------- #
@@ -171,13 +188,18 @@ def _save_dots(ctx, func, *args, **kwargs):
 def remat_call(remat: str, fn, *args):
     """``fn(*args)`` under the remat policy ``remat``: "none" keeps every
     activation for the backward, "full" recomputes ``fn`` in the backward,
-    "dots" recomputes all but its ``aten.mm`` / ``aten.addmm`` outputs."""
+    "dots" recomputes all but its ``aten.mm`` / ``aten.addmm`` outputs.
+    The forward draws no random numbers (no dropout), so no RNG state is
+    stashed for the recompute (a host tensor, which the meta dry run
+    would see leave the meta device)."""
     if remat == "none":
         return fn(*args)
     if remat == "full":
-        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               preserve_rng_state=False)
     if remat == "dots":
         return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               preserve_rng_state=False,
                                context_fn=functools.partial(
                                    ckpt.create_selective_checkpoint_contexts,
                                    _save_dots))
@@ -186,7 +208,8 @@ def remat_call(remat: str, fn, *args):
 
 def forward(cfg: ModelConfig, params: dict, tokens, *,
             positions: torch.Tensor | None = None, collect_kv: bool = False,
-            remat: str = "none", device="cuda"):
+            shard: Callable = _identity_shard, remat: str = "none",
+            device="cuda"):
     """tokens [B, S] -> (logits [B, S, Vp], caches).
 
     ``caches`` (with ``collect_kv``) is a list over the block pattern of
@@ -201,20 +224,27 @@ def forward(cfg: ModelConfig, params: dict, tokens, *,
     "full" a block of several layers (Jamba's 8) also checkpoints each
     layer, so the backward holds one layer's internals at a time.  It
     changes no value, only what the backward keeps and recomputes.
+
+    ``shard(x, name)`` is the launch layer's activation hook
+    (``launch.sharding.make_shard_fn``), called where the reference places
+    its sharding constraints: the embedded tokens and each residual sum
+    ("hidden"), the SSD scan's chunked tensors ("ssm_chunk") and the logits
+    ("logits").  It must return ``x``'s values; the default is the
+    identity.
     """
     check_supported(cfg)
     tokens = torch.as_tensor(tokens, device=resolve_device(device))
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    x = layers.embed_tokens(params["embed"], tokens)
+    x = shard(layers.embed_tokens(params["embed"], tokens), "hidden")
     pattern = cfg.block_pattern()
     nested = remat == "full" and len(pattern) > 1 and not collect_kv
 
     def block_fn(x, bp):
         auxes = []
         for li, kind in enumerate(pattern):
-            layer = functools.partial(apply_layer, cfg, kind)
+            layer = functools.partial(apply_layer, cfg, kind, shard=shard)
             if nested:
                 x, aux = remat_call("full", layer, bp["layers"][li], x,
                                     positions, collect_kv)
@@ -230,7 +260,8 @@ def forward(cfg: ModelConfig, params: dict, tokens, *,
         for li, aux in enumerate(block_aux):
             auxes[li].append(aux)
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    logits = layers.apply_head(cfg, params["head"], params["embed"], x)
+    logits = shard(layers.apply_head(cfg, params["head"], params["embed"], x),
+                   "logits")
     if not collect_kv:
         return logits, None
     caches = [{name: tuple(torch.stack([a[name][j] for a in per_layer])
@@ -251,8 +282,10 @@ def cross_entropy(logits: torch.Tensor, targets) -> torch.Tensor:
 
 
 def loss_fn(cfg: ModelConfig, params: dict, tokens, targets, *,
-            remat: str = "none", device="cuda") -> torch.Tensor:
+            shard: Callable = _identity_shard, remat: str = "none",
+            device="cuda") -> torch.Tensor:
     """Mean next-token cross-entropy (targets = tokens shifted by the
     caller)."""
-    logits, _ = forward(cfg, params, tokens, remat=remat, device=device)
+    logits, _ = forward(cfg, params, tokens, shard=shard, remat=remat,
+                        device=device)
     return cross_entropy(logits, targets)

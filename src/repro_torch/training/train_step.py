@@ -11,10 +11,12 @@
     the cross-shard ``pmean`` is a sum over the shards in the grads' dtype
     (bfloat16 when compressed) divided by their number.
 
-The activation-sharding hook (``shard``) belongs to the launch layer and
-is not taken here.  Parameters come in as plain tensors; each loss call
-takes its grads with respect to detached copies of the leaves, so a
-``block_slice`` view of a stacked leaf accumulates into the stacked leaf.
+``shard`` is the launch layer's activation hook
+(``launch.sharding.make_shard_fn``), passed to the model's loss as the
+reference passes it; None leaves the model's identity default.
+Parameters come in as plain tensors; each loss call takes its grads with
+respect to detached copies of the leaves, so a ``block_slice`` view of a
+stacked leaf accumulates into the stacked leaf.
 """
 from __future__ import annotations
 
@@ -28,9 +30,14 @@ from .tree import leaves, map_tree, unflatten
 _COMPRESS = {None: None, "bf16": torch.bfloat16}
 
 
-def make_loss_fn(cfg: ModelConfig, remat: str = "dots", device="cuda"):
+def make_loss_fn(cfg: ModelConfig, shard=None, remat: str = "dots",
+                 device="cuda"):
+    kw = {"remat": remat, "device": device}
+    if shard is not None:
+        kw["shard"] = shard
+
     def loss_fn(params, batch):
-        return models.loss_fn(cfg, params, batch, remat=remat, device=device)
+        return models.loss_fn(cfg, params, batch, **kw)
     return loss_fn
 
 
@@ -44,6 +51,24 @@ def value_and_grad(loss_fn, params, batch):
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(req, grads)]
     return loss.detach(), unflatten(params, grads)
+
+
+def _per_microbatch(loss_fn, params):
+    """``value_and_grad`` for each microbatch.  On ``meta`` (the launch
+    layer's dry run) every microbatch and data shard has the same shapes
+    and no values, so the first call's result stands for the rest, as the
+    reference's ``lax.scan`` traces its body once."""
+    memo = []
+    shape_only = leaves(params)[0].device.type == "meta"
+
+    def vg(mb):
+        if memo:
+            return memo[0]
+        out = value_and_grad(loss_fn, params, mb)
+        if shape_only:
+            memo.append(out)
+        return out
+    return vg
 
 
 def split_rows(batch: dict, n: int) -> list[dict]:
@@ -77,11 +102,13 @@ def accumulate_grads(loss_fn, params, batch, num_micro: int = 1,
         if cast is not None:
             grads = map_tree(lambda g: g.to(cast), grads)
         return loss, grads
-    loss_sum = torch.zeros((), dtype=torch.float32)
+    loss_sum = torch.zeros((), dtype=torch.float32,
+                           device=leaves(params)[0].device)
     acc = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                          device=p.device), params)
+    vg = _per_microbatch(loss_fn, params)
     for mb in split_rows(batch, num_micro):
-        loss, grads = value_and_grad(loss_fn, params, mb)
+        loss, grads = vg(mb)
         if cast is not None:
             grads = map_tree(lambda g: g.to(cast), grads)
         acc = map_tree(lambda a, g: a + g.float(), acc, grads)
@@ -96,10 +123,11 @@ def _update(opt_cfg: AdamWConfig, params, opt_state, loss, grads):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
-                    remat: str = "dots", num_micro: int = 1, device="cuda"):
+                    shard=None, remat: str = "dots", num_micro: int = 1,
+                    device="cuda"):
     """One optimizer step on the whole batch: (params, opt_state, batch) ->
     (params, opt_state, stats with "loss", "grad_norm", "lr")."""
-    loss_fn = make_loss_fn(cfg, remat=remat, device=device)
+    loss_fn = make_loss_fn(cfg, shard=shard, remat=remat, device=device)
 
     def train_step(params, opt_state, batch):
         loss, grads = accumulate_grads(loss_fn, params, batch,
@@ -123,21 +151,25 @@ def _data_mean(shard_fn, batch: dict, data_shards: int):
 
 
 def make_hybrid_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                           data_shards: int, *, remat: str = "full",
-                           num_micro: int = 4, compress: str | None = "bf16",
-                           device="cuda"):
+                           data_shards: int, *, shard=None,
+                           remat: str = "full", num_micro: int = 4,
+                           compress: str | None = "bf16", device="cuda"):
     """Deferred-single-reduction train step: each data shard accumulates its
     microbatch grads locally (in bfloat16 when compressed, else float32),
     and the cross-shard mean happens once, in that dtype, before the cast
     to float32 and the division by ``num_micro``."""
-    loss_fn = make_loss_fn(cfg, remat=remat, device=device)
+    loss_fn = make_loss_fn(cfg, shard=shard, remat=remat, device=device)
     acc_dtype = _check_compress(compress) or torch.float32
 
     def train_step(params, opt_state, batch):
+        vg = _per_microbatch(loss_fn, params)
+
         def shard_grads(sb):
-            loss_sum, acc = torch.zeros((), dtype=torch.float32), None
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=leaves(params)[0].device)
+            acc = None
             for mb in split_rows(sb, num_micro):
-                loss, grads = value_and_grad(loss_fn, params, mb)
+                loss, grads = vg(mb)
                 grads = map_tree(lambda g: g.to(acc_dtype), grads)
                 acc = grads if acc is None else map_tree(torch.add, acc, grads)
                 loss_sum = loss_sum.to(loss.device) + loss

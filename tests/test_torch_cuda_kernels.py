@@ -123,8 +123,10 @@ def test_quantized_paged_decode_kernel_vs_plain(N, Hq, Hkv, Dk, Dv, page, MB,
 
 
 def test_quantized_paged_decode_rejects_bad_mixes():
-    """Quantized pages launch only with both float32 [P] scales; scales
-    with unquantized pages, or mixed page types, raise."""
+    """Quantized pages launch with both float32 [P] scales or with neither
+    (raw codes, a unit scale: ``test_paged_raw_code_pages_vs_plain``); one
+    scale alone, scales with unquantized pages, or mixed page types,
+    raise."""
     q = torch.randn(2, 8, 16, device="cuda")
     kf = torch.randn(4, 16, 2, 16, device="cuda")
     k8 = kf.to(torch.float8_e4m3fn)
@@ -134,7 +136,7 @@ def test_quantized_paged_decode_rejects_bad_mixes():
     ln = torch.ones(2, dtype=torch.int32, device="cuda")
     n0 = pa.LAUNCHES
     with pytest.raises(TypeError, match="scale"):
-        pa.paged_decode_attention(q, k8, k8, bt, ln)
+        pa.paged_decode_attention(q, k8, k8, bt, ln, v_scale=sc)
     with pytest.raises(TypeError, match="scale"):
         pa.paged_decode_attention(q, ki, ki, bt, ln, k_scale=sc)
     with pytest.raises(TypeError, match="scale"):
@@ -697,3 +699,78 @@ def test_reduced_train_step_kernel_vs_plain(arch):
     for a, b in zip(leaves(grads), leaves(rgrads)):
         torch.testing.assert_close(
             a, b, rtol=0, atol=1e-3 * max(b.abs().max().item(), floor))
+
+
+def _launch_call(dtype, page_dtype, rows, G, Dk, Dv, MB, pages, seed):
+    """A paged call of a TP-16 decode cell of the launch layer, at fewer
+    rows: one kv head per device, page 64, G q heads over it (TinyLlama:
+    4 page stripes x 2 heads = 8 of hd 64; DeepSeek-V3: 128 over the
+    576-wide latent, v its first 512 dims), rows up to MB full pages with
+    a ragged tail, and most rows empty (a cell's idle work rows)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(rows, G, Dk, device="cuda", generator=g).to(dtype)
+    k = torch.randn(pages, 64, 1, Dk, device="cuda", generator=g)
+    if Dv is None:                      # the latent: v a view of k
+        k = k.to(page_dtype)
+        v = k[..., :512]
+    else:
+        v = torch.randn(pages, 64, 1, Dv, device="cuda",
+                        generator=g).to(page_dtype)
+        k = k.to(page_dtype)
+    bt = torch.randint(0, pages, (rows, MB), device="cuda", generator=g,
+                       dtype=torch.int32)
+    ln = torch.randint(1, MB * 64 + 1, (rows,), device="cuda", generator=g,
+                       dtype=torch.int32)
+    ln[1::3] = 0
+    ln[0] = MB * 64
+    return q, k, v, bt, ln
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cell", ["tinyllama_tp16", "deepseek_tp16"])
+def test_paged_launch_cell_shapes_vs_plain(cell, dtype):
+    """The launch layer's decode cells at (I 16, TP 16): TinyLlama's G 8
+    over one kv head of 64 per device (257 pages a stripe) and
+    DeepSeek-V3's G 128 over the latent (72 pages a stripe, head
+    groups), bf16 pages as the cells keep them, float32 and bfloat16 q."""
+    if cell == "tinyllama_tp16":
+        args = _launch_call(dtype, dtype, 48, 8, 64, 64, 257, 600, 1)
+    else:
+        args = _launch_call(dtype, dtype, 12, 128, 576, None, 72, 300, 2)
+    scale = (128 + 64) ** -0.5 if cell == "deepseek_tp16" else None
+    n0 = pa.LAUNCHES
+    o, l = pa.paged_decode_attention(*args, scale=scale)
+    assert pa.LAUNCHES == n0 + 1
+    o2, l2 = ref.paged_decode_attention(*args, scale=scale)
+    _close(o, o2, dtype)
+    _close(l, l2, dtype)
+
+
+@pytest.mark.parametrize("page_dtype", [torch.float8_e4m3fn, torch.int8],
+                         ids=["fp8", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_raw_code_pages_vs_plain(dtype, page_dtype):
+    """fp8 / int8 pages passed without scales (a cell's raw float8 pools)
+    launch the quantized kernel with a unit scale, counted under the page
+    type, and agree with the plain version, which upcasts the codes as
+    they are; the latent (v a view of k) too."""
+    for i, (Dv, G, Dk, MB) in enumerate(((64, 8, 64, 257),
+                                         (None, 128, 576, 20))):
+        q, k, v, bt, ln = _launch_call(dtype, torch.bfloat16, 24, G, Dk, Dv,
+                                       MB, 400, 3 + i)
+        if page_dtype == torch.int8:
+            k = (k.float() * 2).round().to(torch.int8)
+            v = (k[..., :512] if Dv is None else
+                 (v.float() * 2).round().to(torch.int8))
+        else:
+            k = k.to(page_dtype)
+            v = k[..., :512] if Dv is None else v.to(page_dtype)
+        name = str(page_dtype).replace("torch.", "")
+        n0 = pa.LAUNCHES_BY_PAGE.get(name, 0)
+        o, l = pa.paged_decode_attention(q, k, v, bt, ln)
+        assert pa.LAUNCHES_BY_PAGE[name] == n0 + 1
+        o2, l2 = ref.paged_decode_attention(q, k, v, bt, ln)
+        _close(o, o2, dtype)
+        _close(l, l2, dtype)
