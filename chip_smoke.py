@@ -3,6 +3,7 @@
     python3 chip_smoke.py              # every phase, then the result line
     python3 chip_smoke.py --kernels    # phases 1-2 only, no result line
     python3 chip_smoke.py --launch     # phases 1 and 17 only, no result line
+    python3 chip_smoke.py --examples   # phases 1 and 10b only, no result line
 
 Phases, each printing one JSON line:
 
@@ -94,8 +95,12 @@ Phases, each printing one JSON line:
                a crash of the streaming cell, beside the colocated engine
                (equal tokens; no prefill cell in a decode binding), whose
                eager run gives the paged kernel's call at TP 1 (G 8) to
-               check and time.  Every cell: no frame leaked, no pool
-               moved, each bucket's graph captured once and replayed
+               check and time.  The prefix cache (cache on) and the
+               prefill cells (no crash) also run with fp8 pools, held to
+               phase 5's tolerance contract instead of token equality
+               (the cache's hits and scatters equal float32's; every
+               paged launch on fp8 pages).  Every cell: no frame leaked,
+               no pool moved, each bucket's graph captured once and replayed
                under its in-place audit.  The TinyLlama weights are then
                freed.  (MiniCPM3-4B's prefill-cell cell runs in phase 9.)
   9. mla     — full-width MiniCPM3-4B (62 layers, random float32 weights,
@@ -122,6 +127,29 @@ Phases, each printing one JSON line:
                of the expert ``bmm``s, of the all-to-all index ops
                (dispatch and combine) and of routing, and the paged kernel
                re-checked and re-timed on the largest call the runs made.
+ 10b. examples — the entry points of ``examples/torch_*.py``: the serve
+               example's ``run`` on the moe phase's weights (its config is
+               that phase's: Phi-3.5-MoE, 8 of 32 layers, capacity factor
+               8), with the example's engine arguments ((4, 2), 2,048 KV
+               tokens per instance, ``ShapeBuckets((1, 2, 4), (0, 1, 2,
+               4), window=4)``) and traffic (six prompts, 6 new tokens):
+               greedy teacher-forced but for near-ties below GAP_TOL, both
+               kernels launched (paged once per attention layer and step,
+               flash once per attention layer and prompt), no frame
+               leaked; its graph step ms and decode tokens/s.  Then the
+               quickstart's ``run``: reduced TinyLlama (bf16, its 60 steps
+               at lr 1e-2, a checkpoint every 10; the loss descends from
+               step 0 to 50, latest checkpoint 50), and full-width
+               TinyLlama-1.1B (f32, B 8 x S 64, 2 microbatches, lr 3e-5,
+               10 steps): one step's gradients with 2 microbatches equal
+               those with 1 within 1e-4 x max|g| per leaf; the loss of a
+               fixed held-out batch, taken after each step, descends at
+               every step (each step's own loss is on a fresh batch of
+               512 tokens, whose noise is larger than a step's gain at
+               this rate: it must only end below where it started); the
+               flash kernel launched for every forward and remat
+               recompute.  One row per run with the card's name and power
+               limit, launches, step ms or tokens/s, and peak GB.
  11. qwen    — full-width Qwen1.5-0.5B (24 layers, q/k/v biases, tied
                embeddings, vocab 151,936; one q head per kv head) at (4, 2)
                pipelined and not and at (2, 4), checked teacher-forced.
@@ -176,11 +204,16 @@ Phases, each printing one JSON line:
                ``decode_forward`` teacher-forced, the cross pools are
                bit-equal before and after the decode steps (read-only), no
                frame is left held, and flash launches split by mask kind
-               (encoder "full", decoder "causal", "cross").  The prefill's
-               encode and decoder-prefix device times per request, and the
-               paged kernel (G 1, hd 64, read-only pools) and flash (the
-               encoder's non-causal S 1500, the cross-attention's Sq 4 x
-               Skv 1500) re-checked and timed at the main path's inputs.
+               (encoder "full", decoder "causal", "cross").  A crash cell
+               at (4, 2) (graphs on): an instance holding a shard of
+               request 0's cross KV dies after two steps; the requests it
+               held finish degraded (never re-prefilled) with a greedy
+               prefix, the others in full, the cross pools bit-equal, no
+               frame held.  The prefill's encode and decoder-prefix device
+               times per request, and the paged kernel (G 1, hd 64,
+               read-only pools) and flash (the encoder's non-causal S
+               1500, the cross-attention's Sq 4 x Skv 1500) re-checked and
+               timed at the main path's inputs.
  16. train   — the flash op under autograd (the kernel forward, the
                ported ``flash_backward``) against autograd through the plain
                version at TinyLlama's train call (B 4 x S 2048), TinyLlama's
@@ -258,6 +291,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import gc
+import importlib.util
 import json
 import os
 import shutil
@@ -1719,6 +1753,9 @@ def main() -> None:
     if "--launch" in sys.argv[1:]:
         run_launch_phase({})
         return      # launch phase only: no other phase, no result line
+    if "--examples" in sys.argv[1:]:
+        run_examples_phase()
+        return      # examples phase only: no other phase, no result line
     gen = torch.Generator(device=DEV).manual_seed(0)
     ksum = run_kernel_phase(gen)
     if "--kernels" in sys.argv[1:]:
@@ -1831,7 +1868,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    moe_runs = run_moe_phase(ksum)
+    moe_runs, phi_params = run_moe_phase(ksum)
+    run_examples_phase(phi_params)      # frees the moe phase's weights
+    del phi_params
     mesh_2x4 = dict(num_instances=2, instances_per_node=2, tp=4,
                     buckets=CPBuckets(edges=(256,), degrees=(1, 2)))
     mesh_runs = (("2x4 pipelined", True, mesh_2x4),)
@@ -2166,12 +2205,15 @@ DISAGG_CHUNK, MLA_DISAGG_CHUNK = 256, 32
 MLA_DISAGG_LENS = (24, 90, 180)                # the reference's MLA cell
 
 
-def serve_engine(cfg, params, **kw) -> NanoCPEngine:
+def serve_engine(cfg, params, kv_dtype: str = "bf16", **kw) -> NanoCPEngine:
     """The serve phase's engine: (I=4, TP=2) unless ``kw`` says otherwise,
-    graphs on, pipelined; every pool's address recorded."""
+    graphs on, pipelined; every pool's address recorded.  Quantized pools
+    keep every step's logits for the tolerance contract."""
     args = dict(num_instances=4, instances_per_node=4,
                 kv_capacity_tokens=4096, page_size=16, tp=2,
                 buckets=CPBuckets(edges=(100, 256), degrees=(1, 2, 3)))
+    if quant.is_quantized(kv_dtype):
+        args.update(kv_dtype=kv_dtype, keep_logits=True)
     args.update(kw)
     eng = NanoCPEngine(cfg, params, device=DEV, **args)
     eng.pool_ptrs = {k: v.data_ptr() for k, v in eng.state.items()}
@@ -2231,6 +2273,25 @@ def serve_audit(eng, tag: str) -> dict:
             "frames_leaked": 0}
 
 
+def serve_check(cfg, params, eng, prompts: list, tag: str, new_tokens: int,
+                kv_dtype: str) -> dict:
+    """Every transcript greedy (float32 pools), or held to the tolerance
+    contract (quantized pools: tokens with the cache on and off, or with
+    prefill cells and colocated, may then differ at near-ties), and every
+    paged launch of the pools' page type."""
+    pool = eng.state["kv_pool" if cfg.is_mla else "k_pool"]
+    pages = str(pool.dtype).replace("torch.", "")
+    if set(pa.LAUNCHES_BY_PAGE) != {pages}:
+        fail(f"{tag}: paged launches by page type {dict(pa.LAUNCHES_BY_PAGE)}"
+             f", pools {pages}")
+    if quant.is_quantized(kv_dtype):
+        return {"kv_dtype": kv_dtype, **quant_contract(
+            cfg, params, prompts, eng, kv_dtype, tag, new_tokens)}
+    return {"ties_tolerated": serve_greedy(
+        cfg, params, eng, dict(enumerate(prompts)), tag,
+        {r: new_tokens for r in range(len(prompts))})}
+
+
 def serve_greedy(cfg, params, eng, prompts: dict, tag: str,
                  new_tokens: dict) -> int:
     """Transcripts of the requests in ``prompts`` ({rid: prompt}) full
@@ -2252,11 +2313,12 @@ def serve_prefix_prompts(cfg, seed: int, suffixes) -> list:
             for n in suffixes]
 
 
-def serve_prefix_run(cfg, params, prompts, cache: bool) -> dict:
+def serve_prefix_run(cfg, params, prompts, cache: bool,
+                     kv_dtype: str = "bf16") -> dict:
     """The six sharers with staggered arrivals: request 0 prefills (and
     fills the cache) at the first step, then one request arrives before
     each step."""
-    eng = serve_engine(cfg, params, prefix_cache=cache)
+    eng = serve_engine(cfg, params, kv_dtype, prefix_cache=cache)
     scattered = count_scatters(eng)
 
     def arrive(step):            # one more sharer before each later step
@@ -2266,7 +2328,8 @@ def serve_prefix_run(cfg, params, prompts, cache: bool) -> dict:
     eng.add_request(prompts[0], NEW_TOKENS)
     t = serve_drain(eng, on_step=arrive)
     launches = read_launches()
-    tag = f"serve prefix cache {'on' if cache else 'off'}"
+    tag = (f"serve prefix cache {'on' if cache else 'off'}"
+           + (f" {kv_dtype}" if quant.is_quantized(kv_dtype) else ""))
     if len(eng.results) != len(prompts):
         fail(f"{tag}: {len(eng.results)} of {len(prompts)} requests arrived")
     hp = eng.hot_path_stats
@@ -2281,9 +2344,8 @@ def serve_prefix_run(cfg, params, prompts, cache: bool) -> dict:
            "scattered_tokens": scattered["tokens"],
            "prefill_ms_per_request": t["prefill_us"] / 1e3 / len(prompts),
            "steps": t["steps"], "launches": launches,
-           "ties_tolerated": serve_greedy(
-               cfg, params, eng, dict(enumerate(prompts)), tag,
-               {r: NEW_TOKENS for r in range(len(prompts))}),
+           **serve_check(cfg, params, eng, prompts, tag, NEW_TOKENS,
+                         kv_dtype),
            **serve_audit(eng, tag)}
     if cache:
         row["trie"] = eng.prefix_trie.stats()
@@ -2623,16 +2685,17 @@ def slo_parity(cfg, params, T: float) -> dict:
 # --- disaggregated prefill cells -------------------------------------------- #
 def serve_disagg(cfg, params, prompts, tag: str, *, I: int, tp: int, w: int,
                  chunk: int, cells: int, crash: bool = False,
-                 new_tokens: int = NEW_TOKENS, record: bool = False) -> dict:
+                 new_tokens: int = NEW_TOKENS, record: bool = False,
+                 kv_dtype: str = "bf16") -> dict:
     """One engine with ``cells`` prefill cells (0: colocated) on the
     prompts.  Every decode-time binding is decode-only; with ``crash`` the
     cell streaming the longest prompt dies once a chunk of it has landed.
     Host clock per request: from its admission step (staged or prefilled)
     to the end of its first decode dispatch.  ``record`` runs eagerly and
     keeps the largest paged call of the first steps."""
-    eng = serve_engine(cfg, params, num_instances=I, instances_per_node=w,
-                       tp=tp, prefill_cells=cells, chunk_tokens=chunk,
-                       cuda_graphs=not record)
+    eng = serve_engine(cfg, params, kv_dtype, num_instances=I,
+                       instances_per_node=w, tp=tp, prefill_cells=cells,
+                       chunk_tokens=chunk, cuda_graphs=not record)
     scattered = count_scatters(eng)
     for p in prompts:
         eng.add_request(p, new_tokens)
@@ -2702,9 +2765,8 @@ def serve_disagg(cfg, params, prompts, tag: str, *, I: int, tp: int, w: int,
            "steps": hp["steps"], "run_s": run_s, "launches": launches,
            "recovered": [eng.results[r].recovered
                          for r in range(len(prompts))],
-           "ties_tolerated": serve_greedy(
-               cfg, params, eng, dict(enumerate(prompts)), tag,
-               {r: new_tokens for r in range(len(prompts))})}
+           **serve_check(cfg, params, eng, prompts, tag, new_tokens,
+                         kv_dtype)}
     if crash:
         row.update(crash=crashed, reprefill_tokens=hp["reprefill_tokens"])
     if record:
@@ -2744,7 +2806,14 @@ def run_serve_phase(cfg, params, ksum: dict) -> dict:
                 or off["scattered_tokens"] != sum(map(len, prompts))
                 or on["scattered_tokens"] >= off["scattered_tokens"]):
             fail(f"serve prefix: on {on}, off {off}")
-        rows += runs + [serve_fork(cfg, params), serve_evict(cfg, params),
+        # fp8 pools under the cache: the same hits and scatters, the
+        # transcripts held to the tolerance contract
+        fp8 = serve_prefix_run(cfg, params, prompts, True, kv_dtype="fp8")
+        fp8.pop("tokens")
+        if (fp8["prefix_hit_tokens"], fp8["scattered_tokens"]) != (
+                on["prefix_hit_tokens"], on["scattered_tokens"]):
+            fail(f"serve prefix fp8: hits and scatters {fp8} vs float32 {on}")
+        rows += runs + [fp8, serve_fork(cfg, params), serve_evict(cfg, params),
                         serve_prefix_chaos(cfg, params)]
         T = modeled_iteration_s(cfg, 256, CPBuckets(edges=(100_000,),
                                                     degrees=(1, 2)))
@@ -2767,6 +2836,12 @@ def run_serve_phase(cfg, params, ksum: dict) -> dict:
             rows.append(row)
             if not crash:
                 disagg = row
+        # fp8 pools with prefill cells: the chunk streams quantize as they
+        # land, the transcripts held to the tolerance contract
+        row = serve_disagg(cfg, params, dprompts, "serve disagg 6x1 fp8",
+                           cells=2, kv_dtype="fp8", **geo)
+        row.pop("tokens")
+        rows.append(row)
         colo.pop("tokens")
         args = colo.pop("captured")
         rows.append(colo)
@@ -2804,9 +2879,10 @@ def run_serve_mla(cfg, params) -> None:
           "seconds": time.perf_counter() - t0})
 
 
-def run_moe_phase(ksum: dict) -> dict:
+def run_moe_phase(ksum: dict) -> tuple[dict, dict]:
     """Phase 10: Phi-3.5-MoE at full width, 8 of 32 layers.  Returns the
-    (4, 2) runs' rows by name (``both_ways``)."""
+    (4, 2) runs' rows by name (``both_ways``) and the weights, which the
+    serve example reuses."""
     cfg = replace(get_config("phi3.5-moe-42b-a6.6b"), num_layers=PHI_LAYERS,
                   capacity_factor=PHI_CAPACITY_FACTOR)
     torch.cuda.reset_peak_memory_stats()
@@ -2831,10 +2907,228 @@ def run_moe_phase(ksum: dict) -> dict:
         row = paged_row(a, a[0].dtype, "moe main path", name="paged_decode_moe")
         emit(row)
         ksum.setdefault("paged_decode_moe", []).append(row)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    return runs
+    return runs, params
+
+
+# --------------------------------------------------------------------------- #
+# phase 10b: the three examples of examples/torch_*.py
+# --------------------------------------------------------------------------- #
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples"
+QS_FULL_LR, QS_FULL_STEPS = 3e-5, 10   # ROADMAP queue 3's full-width rate
+QS_GRAD_TOL = 1e-4                     # x max|g| per leaf, 2 vs 1 microbatch
+
+
+def load_example(name: str):
+    """Import ``examples/<name>.py`` (the folder is not a package)."""
+    spec = importlib.util.spec_from_file_location(name,
+                                                  EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_serve_example(params=None) -> dict:
+    """The serve example's ``run`` at full width (Phi-3.5-MoE, 8 of 32
+    layers, capacity factor 8, float32 ``init_params(seed=0)``: the moe
+    phase's weights when given, else made here): one CUDA graph per
+    bucket, both kernels launched (paged once per attention layer and
+    decode step, flash once per attention layer and prompt), every token
+    greedy or a near-tie below GAP_TOL (teacher-forced), drained with no
+    frame leaked."""
+    ex = load_example("torch_serve_dcp")
+    cfg = ex.config()
+    if (cfg.num_layers, cfg.capacity_factor) != (PHI_LAYERS,
+                                                 PHI_CAPACITY_FACTOR):
+        fail(f"serve example: config {cfg.num_layers} layers, capacity "
+             f"factor {cfg.capacity_factor}, not the moe phase's")
+    card, t0 = nvidia_smi(), time.perf_counter()
+    if params is None:
+        params = transformer.init_params(cfg, seed=0, device=DEV,
+                                         dtype=torch.float32)
+    prompts = ex.make_prompts(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t_run = time.perf_counter()
+    res = ex.run(cfg, params, prompts, device=DEV)
+    launches = read_launches()
+    run_s = time.perf_counter() - t_run
+    n_attn = attention_layers(cfg)
+    want = {"paged_decode": res["iterations"] * n_attn,
+            "flash_fwd": len(prompts) * n_attn}
+    if launches != want or not all(launches.values()):
+        fail(f"serve example: launches {launches}, expected {want}")
+    bad, ties = ex.greedy_check(cfg, params, prompts, res["transcripts"],
+                                device=DEV, gap_tol=ex.GAP_TOL)
+    if bad:
+        fail(f"serve example: tokens off greedy (rid, pos, engine, greedy, "
+             f"gap): {bad}")
+    if (not res["drained"] or res["leaked_frames"]
+            or any(len(t) != ex.NEW_TOKENS
+                   for t in res["transcripts"].values())):
+        fail(f"serve example: drained {res['drained']}, leaked frames "
+             f"{res['leaked_frames']}, transcripts {res['transcripts']}")
+    aot = res["aot"]
+    if aot["captured"] < 1 or aot["hits"] < 1 or aot["donation_copies"]:
+        fail(f"serve example: graphs {aot}")
+    steps = res["steps"]
+    steady = [r for r in steps if r["dispatched"]
+              and not r["prefill_ms"] and not r["captured"]]
+    steady_ms = sum(r["ms"] for r in steady)
+    decode_ms = sum(r["ms"] - r["prefill_ms"] for r in steps)
+    decode_tokens = sum(len(t) - 1 for t in res["transcripts"].values())
+    row = {"phase": "examples", "example": "examples/torch_serve_dcp.py",
+           "model": cfg.name, "layers": cfg.num_layers,
+           "capacity_factor": cfg.capacity_factor, "mesh": [4, 2],
+           "prompt_lens": list(ex.LENGTHS), "new_tokens": ex.NEW_TOKENS,
+           "card": card, "iterations": res["iterations"],
+           "launches": launches, "aot": aot,
+           "greedy": True, "near_ties": [list(t) for t in ties],
+           "leaked_frames": 0,
+           "median_graph_step_ms": (statistics.median(r["ms"] for r in
+                                                      steady)
+                                    if steady else None),
+           "graph_steps": len(steady),
+           "graph_tokens_per_s": (sum(r["rows"] for r in steady)
+                                  / steady_ms * 1e3 if steady else None),
+           "step_ms": [r["ms"] for r in steps],
+           "prefill_ms": sum(r["prefill_ms"] for r in steps),
+           "decode_tokens_per_s": decode_tokens / decode_ms * 1e3,
+           "run_s": run_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+def quickstart_row(ex, tag: str, cfg, res: dict, launches: int, card: str,
+                   peak_gb: float, **extra) -> dict:
+    steady = statistics.median(res["step_s"][1:]) * 1e3
+    row = {"phase": "examples", "example": "examples/torch_quickstart.py",
+           "run": tag, "model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "batch": ex.BATCH, "seq": ex.SEQ,
+           "num_micro": ex.NUM_MICRO, "card": card,
+           "losses": res["losses"], "latest_step": res["latest_step"],
+           "flash_launches": launches,
+           "median_step_ms": steady,
+           "tokens_per_s": ex.BATCH * ex.SEQ / steady * 1e3,
+           "peak_gb": peak_gb, **extra}
+    emit(row)
+    return row
+
+
+def run_quickstart_examples() -> dict:
+    """The quickstart example's ``run`` twice on the card.  Reduced
+    TinyLlama (2 layers, bf16 ``init_params(seed=0)``, the example's own
+    60 steps at lr 1e-2, a checkpoint every 10): the loss descends from
+    step 0 to step 50 and the latest checkpoint is step 50.  Full-width
+    TinyLlama-1.1B (float32 weights, seed 0), the same loop at lr 3e-5 for
+    10 steps, 2 microbatches: first one step's gradients with 2
+    microbatches against 1 (every leaf within QS_GRAD_TOL of its largest
+    entry), then the run: the loss of a fixed held-out batch after each
+    step descends at every step, the last step's own loss is below the
+    first's.  Both launch the flash kernel (forward and remat
+    recompute)."""
+    ex = load_example("torch_quickstart")
+    card = nvidia_smi()
+    CKPT_ROOT.mkdir(exist_ok=True)
+    rows = {}
+    ckdir = tempfile.mkdtemp(prefix="quickstart_", dir=CKPT_ROOT)
+    try:
+        cfg = ex.reduced_config()
+        params = models.init_params(cfg, seed=0, device=DEV)
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        res = ex.run(cfg, params, device=DEV, ckpt_dir=ckdir)
+        launches = read_launches()["flash_fwd"]
+        rows["reduced"] = quickstart_row(
+            ex, "reduced", cfg, res, launches, card,
+            torch.cuda.max_memory_allocated() / 1e9)
+        losses = res["losses"]
+        if (not all(np.isfinite(losses)) or not losses[50] < losses[0]
+                or res["latest_step"] != 50 or not launches):
+            fail(f"quickstart reduced: losses {losses[0]} -> {losses[50]}, "
+                 f"latest checkpoint {res['latest_step']}, flash launches "
+                 f"{launches}")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    del params, res
+    free_memory()
+
+    cfg = get_config(ex.ARCH)
+    params = models.init_params(cfg, seed=0, device=DEV, dtype=torch.float32)
+    batch = data.SyntheticTokens(cfg, batch=ex.BATCH,
+                                 seq_len=ex.SEQ).batch_at(0)
+    loss_fn = train_step.make_loss_fn(cfg, device=DEV)
+    l1, g1 = train_step.accumulate_grads(loss_fn, params, batch, num_micro=1)
+    l2, g2 = train_step.accumulate_grads(loss_fn, params, batch,
+                                         num_micro=ex.NUM_MICRO)
+    worst, worst_leaf = 0.0, None
+    for (path, a), b in zip(leaf_paths(g2), leaves(g1)):
+        r = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        if r > worst:
+            worst, worst_leaf = r, path
+    grad_row = {"grad_leaves": len(leaves(g1)), "grad_worst_leaf": worst_leaf,
+                "grad_worst_rel": worst, "grad_tol": QS_GRAD_TOL,
+                "loss_micro1": float(l1), "loss_micro2": float(l2)}
+    del g1, g2
+    free_memory()
+    if worst > QS_GRAD_TOL:
+        fail(f"quickstart full width: {ex.NUM_MICRO}-microbatch grads off the "
+             f"1-microbatch ones: {grad_row}")
+    # beside each step's loss (on its own batch), the loss on one fixed
+    # batch the run never trains on, after each step
+    heldout, heldout_losses = data.SyntheticTokens(
+        cfg, batch=ex.BATCH, seq_len=ex.SEQ, seed=1).batch_at(0), []
+
+    def on_step(step, p, stats):
+        with torch.no_grad():
+            heldout_losses.append(float(models.loss_fn(cfg, p, heldout,
+                                                       device=DEV)))
+    ckdir = tempfile.mkdtemp(prefix="quickstart_", dir=CKPT_ROOT)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        res = ex.run(cfg, params, device=DEV, steps=QS_FULL_STEPS,
+                     lr=QS_FULL_LR, ckpt_dir=ckdir, on_step=on_step)
+        launches = read_launches()["flash_fwd"] - QS_FULL_STEPS * \
+            attention_layers(cfg)      # less the held-out forwards'
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    rows["full"] = quickstart_row(ex, "full width", cfg, res, launches, card,
+                                  peak, lr=QS_FULL_LR,
+                                  heldout_losses=heldout_losses, **grad_row)
+    # each step's own loss is on a fresh batch (B 8 x S 64: batch noise of
+    # a few hundredths); the held-out batch's loss after each step is the
+    # one that must descend at every step
+    losses = res["losses"]
+    want = QS_FULL_STEPS * ex.NUM_MICRO * 2 * attention_layers(cfg)
+    if (not all(np.isfinite(losses + heldout_losses))
+            or not losses[-1] < losses[0]
+            or any(b >= a for a, b in zip(heldout_losses, heldout_losses[1:]))
+            or launches != want):
+        fail(f"quickstart full width: losses {losses}, held-out losses "
+             f"{heldout_losses}, flash launches {launches} (expected {want})")
+    del params, res
+    free_memory()
+    return rows
+
+
+def run_examples_phase(phi_params: dict | None = None) -> dict:
+    """Phase 10b: the serve example on ``phi_params`` (the moe phase's
+    weights, emptied here once it has run so that the quickstarts have the
+    card; made anew under ``--examples``), then both quickstart runs."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        serve = run_serve_example(phi_params)
+    if phi_params is not None:
+        phi_params.clear()
+    free_memory()
+    qs = run_quickstart_examples()
+    emit({"phase": "examples", "ok": True, "card": nvidia_smi(),
+          "seconds": time.perf_counter() - t0})
+    return {"serve": serve, **qs}
 
 
 def perturb_attention(params) -> int:
@@ -3174,6 +3468,53 @@ def whisper_prefill_row(cfg, params, audio) -> dict:
     return row
 
 
+def run_whisper_crash(cfg, params, audio) -> dict:
+    """Whisper under a crash at (4, 2), graphs on, pipelined: after two
+    steps an instance holding a shard of request 0's cross KV (not its
+    slot's instance) dies.  Every request whose cross KV or slot it held
+    finishes degraded with a greedy prefix, never re-prefilled (the
+    reference's rule for pinned slots); the others finish in full and
+    greedy; the cross pools stay bit-equal to their copy after the
+    prefill; no frame stays held and no pool moves."""
+    tag = "whisper crash"
+    eng = make_engine(cfg, params, audio, True)
+    cross = CrossPoolWatch(eng)
+    cl = eng.cluster
+    pt = cl.page_table
+    zero_launches()
+    with torch.no_grad():
+        eng.step()
+        eng.step()
+        victim = next((s for s, t in sorted(pt.shard_tokens(0).items())
+                       if t > 0 and s != cl.slot_map[0][0]), None)
+        if victim is None:
+            fail(f"{tag}: request 0's cross KV sits on its slot's instance "
+                 f"alone: {pt.shard_tokens(0)}")
+        hit = {r for r in cl.active if pt.shard_tokens(r).get(victim, 0) > 0
+               or cl.slot_map[r][0] == victim}
+        eng.fail_instance(victim)
+        for _ in range(NEW_TOKENS + 64):
+            if not eng.pending:
+                break
+            eng.step()
+    launches = read_launches()
+    hp = dict(eng.hot_path_stats)
+    degraded = {r for r, g in eng.results.items() if g.recovered is False}
+    if degraded != hit or hp["reprefill_tokens"]:
+        fail(f"{tag}: degraded {sorted(degraded)}, hit {sorted(hit)}, "
+             f"re-prefilled {hp['reprefill_tokens']} tokens")
+    if any(len(eng.results[r].tokens) >= NEW_TOKENS for r in hit):
+        fail(f"{tag}: a degraded request emitted every token")
+    row = chaos_check(cfg, params, audio, eng, tag, tuple(hit))
+    row.update(phase="whisper", victim=victim, degraded=sorted(hit),
+               launches=launches, **cross.check(tag))
+    emit(row)
+    eng.close()
+    del eng
+    free_memory()
+    return row
+
+
 def run_whisper_phase(ksum: dict) -> dict:
     """Phase 15: whisper-base at full width and depth, random float32
     weights (seed 0) with perturbed biases and layernorms
@@ -3209,6 +3550,7 @@ def run_whisper_phase(ksum: dict) -> dict:
         cfg, params, audio, True, tag="whisper 2x4 pipelined",
         num_instances=2, instances_per_node=2, tp=4,
         buckets=CPBuckets(edges=(256,), degrees=(1, 2)))
+    run_whisper_crash(cfg, params, audio)
     whisper_prefill_row(cfg, params, audio)
     args, sc = runs["captured"]
     for a in (args, as_bf16_call(args)):

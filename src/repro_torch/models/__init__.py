@@ -1,6 +1,6 @@
 """Model substrate (port of ``repro.models``): the decoder-only trunk
 (``transformer``) and the encoder-decoder one (``encdec``), with the
-architecture-generic init and loss dispatch."""
+architecture-generic init, forward and loss dispatch."""
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
@@ -11,6 +11,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, **kw) -> dict:
     if cfg.is_encoder_decoder:
         return encdec.init_params(cfg, seed, **kw)
     return transformer.init_params(cfg, seed, **kw)
+
+
+def forward(cfg: ModelConfig, params: dict, batch: dict, **kw):
+    """batch: {"tokens": [B, S]} (+ "frames" for enc-dec) -> logits."""
+    if cfg.is_encoder_decoder:
+        return encdec.forward(cfg, params, batch["frames"], batch["tokens"],
+                              **kw)
+    logits, _ = transformer.forward(cfg, params, batch["tokens"], **kw)
+    return logits
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, **kw):

@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch`` (and ``chip_smoke.py``) import
-neither JAX nor anything of the JAX package, and its entry points run on
-CUDA unless the caller asks for the CPU."""
+"""The port stands alone: ``repro_torch`` (and ``chip_smoke.py`` and the
+port's examples, ``examples/torch_*.py``) import neither JAX nor anything
+of the JAX package, and its entry points run on CUDA unless the caller
+asks for the CPU."""
 import os
 import re
 import subprocess
@@ -10,6 +11,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+
+from torch_shared import load_example
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "src" / "repro_torch"
@@ -46,7 +49,9 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b|"
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in
                                         [*PKG.rglob("*.py"),
-                                         REPO / "chip_smoke.py"]))
+                                         REPO / "chip_smoke.py",
+                                         *(REPO / "examples").glob(
+                                             "torch_*.py")]))
 def test_source_has_no_jax_or_reference_import(path):
     src = (REPO / path).read_text()
     assert not _FORBIDDEN.search(src), path
@@ -74,6 +79,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         dcp.init_serve_state(cfg, dims, 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         NanoCPEngine(cfg, params, **kw)
+    serve, quickstart = (load_example("torch_serve_dcp"),
+                         load_example("torch_quickstart"))
+    prompts = [np.arange(20) % 256]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.run(cfg, params, prompts, new_tokens=2, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.run(cfg, params, steps=1)
     # the same calls on the CPU, when asked for
     logits, _ = transformer.forward(cfg, params, np.zeros((1, 4), np.int64),
                                     device="cpu")
@@ -81,6 +93,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert dcp.init_serve_state(cfg, dims, 1, device="cpu")["k_pool"].device.type == "cpu"
     eng = NanoCPEngine(cfg, params, device="cpu", **kw)
     assert eng.state["k_pool"].device.type == "cpu"
+    res = serve.run(cfg, params, prompts, new_tokens=2, device="cpu", **kw)
+    assert len(res["transcripts"][0]) == 2 and res["leaked_frames"] == 0
+    res = quickstart.run(cfg, params, steps=1, device="cpu")
+    assert len(res["losses"]) == 1 and res["latest_step"] == 0
 
 
 def test_unported_paths_raise_not_implemented():

@@ -38,6 +38,7 @@ from repro_torch.serving import slo
 from repro_torch.serving.engine import NanoCPEngine
 from repro_torch.serving.latency_model import HardwareModel, LatencyModel
 from repro_torch.serving.simulator import ClusterSimulator
+from torch_shared import _one_thread  # noqa: F401
 
 VOCAB = 256
 PAGE = 16
@@ -116,6 +117,51 @@ def _drain(eng, max_steps):
             return
         eng.step()
     raise AssertionError(f"run exceeded {max_steps} steps")
+
+
+LOGIT_TOL = {"fp8": 1.5}
+
+
+def _quant_kw(kv_dtype: str) -> dict:
+    """Quantized pools keep every step's logits for the contract."""
+    if kv_dtype == "bf16":
+        return {}
+    return {"kv_dtype": kv_dtype, "keep_logits": True}
+
+
+def _check_contract(models, eng, prompts: dict, kv_dtype: str,
+                    forced: dict | None = None) -> int:
+    """The reference's contract for quantized pools (engine_quant.py),
+    teacher-forced on each transcript of ``prompts`` ({rid: prompt}): the
+    first token greedy; every kept step's logits within LOGIT_TOL of JAX's
+    forward; a token off JAX's argmax only where its top-2 margin is
+    within the bound, such near-ties at most half the steps.  ``forced``
+    ({rid: position}) marks a token the caller forced (a fork's
+    divergence): the steps that rid kept are its last ones, after it.
+    Returns the near-ties."""
+    jcfg, jparams = models[:2]
+    tol = LOGIT_TOL[kv_dtype]
+    near_ties = total = 0
+    for rid, prompt in prompts.items():
+        toks = eng.results[rid].tokens
+        seq = np.concatenate([np.asarray(prompt, np.int64),
+                              np.asarray(toks[:-1], np.int64)])
+        logits, _ = jtransformer.forward(jcfg, jparams, jnp.asarray(seq)[None])
+        ref = np.asarray(logits[0, len(prompt) - 1:], np.float32)
+        assert toks[0] == int(ref[0].argmax()), rid
+        steps = eng.step_logits[rid]
+        first = (forced or {}).get(rid, 0) + 1
+        assert len(steps) == len(toks) - first, (rid, len(steps), first)
+        for t, got in enumerate(steps, start=first):
+            r = ref[t]
+            assert float(np.abs(got[:VOCAB] - r).max()) <= tol, (rid, t)
+            top2 = np.sort(r)[-2:]
+            total += 1
+            if toks[t] != int(r.argmax()):
+                assert top2[1] - top2[0] <= tol, (rid, t, top2)
+                near_ties += 1
+    assert near_ties <= total // 2, (near_ties, total)
+    return near_ties
 
 
 # --------------------------------------------------------------------------- #
@@ -345,7 +391,8 @@ def test_engine_slo(models, mode, pipeline):
 # --------------------------------------------------------------------------- #
 # engine_prefix.py: equality, fork, evict, chaos
 # --------------------------------------------------------------------------- #
-def _prefix_engine(cfg, params, I, TP, cap=4096, cache=True):
+def _prefix_engine(cfg, params, I, TP, cap=4096, cache=True,
+                   kv_dtype="bf16"):
     degrees = (1, 2, 3) if I >= 3 else (1, 2, 2)
     return NanoCPEngine(
         cfg, params, num_instances=I, instances_per_node=I,
@@ -354,10 +401,10 @@ def _prefix_engine(cfg, params, I, TP, cap=4096, cache=True):
         shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4), s_buckets=(0, 1, 2, 4),
                                    window=I),
         max_slots_per_instance=4, audit_donation_every_step=True,
-        prefix_cache=cache, device="cpu")
+        prefix_cache=cache, **_quant_kw(kv_dtype), device="cpu")
 
 
-def _prefix_equality(models, I, TP):
+def _prefix_equality(models, I, TP, kv_dtype="bf16"):
     cfg, params = models[2:]
     rng = np.random.default_rng(0)
     shared = rng.integers(0, VOCAB, (3 * PAGE,))
@@ -365,7 +412,8 @@ def _prefix_equality(models, I, TP):
                for n in (12, 30, 2)]
 
     def run(cache):
-        eng = _prefix_engine(cfg, params, I, TP, cache=cache)
+        eng = _prefix_engine(cfg, params, I, TP, cache=cache,
+                             kv_dtype=kv_dtype)
         ptrs = _pool_ptrs(eng)
         # rid 0 prefills (and fills the cache) before its siblings arrive
         eng.add_request(prompts[0], max_new_tokens=6)
@@ -381,17 +429,22 @@ def _prefix_equality(models, I, TP):
     assert on.hot_path_stats["prefix_hit_tokens"] == 2 * 3 * PAGE
     assert on.hot_path_stats["prefix_inserts"] > 0
     assert off.hot_path_stats["prefix_hit_tokens"] == 0
+    if kv_dtype != "bf16":
+        # quantized pools differ with the cache on and off at near-ties
+        for eng in (on, off):
+            _check_contract(models, eng, dict(enumerate(prompts)), kv_dtype)
+        return
     for rid in range(3):
         assert on.results[rid].tokens == off.results[rid].tokens, rid
     _check_greedy(models, on, prompts, 6)
 
 
-def _prefix_fork(models):
+def _prefix_fork(models, kv_dtype="bf16"):
     cfg, params = models[2:]
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, VOCAB, (PAGE + 12,))     # a partial tail page
     n_new = 12
-    eng = _prefix_engine(cfg, params, 4, 2)
+    eng = _prefix_engine(cfg, params, 4, 2, kv_dtype=kv_dtype)
     ptrs = _pool_ptrs(eng)
     eng.add_request(prompt, max_new_tokens=n_new)
     for _ in range(5):
@@ -410,8 +463,14 @@ def _prefix_fork(models):
     assert eng.hot_path_stats["forks"] == 1
     _drain(eng, 64)
     _check_end(eng, ptrs)
-    _check_greedy(models, eng, [prompt], n_new)
     parent, toks = eng.results[0].tokens, eng.results[child].tokens
+    if kv_dtype != "bf16":
+        assert len(toks) == n_new and toks[:k - 1] == parent[:k - 1]
+        assert toks[k - 1] == forced != parent[k - 1]
+        _check_contract(models, eng, {0: prompt, child: prompt}, kv_dtype,
+                        forced={child: k - 1})
+        return
+    _check_greedy(models, eng, [prompt], n_new)
     # the child: the parent's first k - 1 tokens, the forced one, then
     # greedy over its own sequence
     assert len(toks) == n_new and toks[:k - 1] == parent[:k - 1]
@@ -492,7 +551,7 @@ def test_engine_prefix(models, cell):
 CELLS, CHUNK, STEPS = 2, 32, 4
 
 
-def _disagg_engine(cfg, params, I, TP, w, cells):
+def _disagg_engine(cfg, params, I, TP, w, cells, kv_dtype="bf16"):
     return NanoCPEngine(
         cfg, params, num_instances=I, instances_per_node=w, tp=TP,
         kv_capacity_tokens=4096, page_size=PAGE,
@@ -500,14 +559,14 @@ def _disagg_engine(cfg, params, I, TP, w, cells):
         shape_buckets=ShapeBuckets(m_buckets=(1, 2, 4), s_buckets=(0, 1, 2, 4),
                                    window=I),
         max_slots_per_instance=4, prefill_cells=cells, chunk_tokens=CHUNK,
-        audit_donation_every_step=True, device="cpu")
+        audit_donation_every_step=True, **_quant_kw(kv_dtype), device="cpu")
 
 
-def _disagg(models, I, TP, w, crash):
+def _disagg(models, I, TP, w, crash, kv_dtype="bf16"):
     cfg, params = models[2:]
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, VOCAB, (L,)) for L in (24, 90, 180)]
-    eng = _disagg_engine(cfg, params, I, TP, w, CELLS)
+    eng = _disagg_engine(cfg, params, I, TP, w, CELLS, kv_dtype)
     ptrs = _pool_ptrs(eng)
     for p in prompts:
         eng.add_request(p, max_new_tokens=STEPS)
@@ -536,10 +595,15 @@ def _disagg(models, I, TP, w, crash):
     if crash:
         assert eng.results[2].recovered is True
         assert hp["reprefill_tokens"] > 0 and hp["recovered_tokens"] > 0
-    colo = _disagg_engine(cfg, params, I, TP, w, 0)
+    colo = _disagg_engine(cfg, params, I, TP, w, 0, kv_dtype)
     for p in prompts:
         colo.add_request(p, max_new_tokens=STEPS)
     _drain(colo, 300)
+    if kv_dtype != "bf16":
+        # quantized pools differ with cells and colocated at near-ties
+        for e in (eng, colo):
+            _check_contract(models, e, dict(enumerate(prompts)), kv_dtype)
+        return
     for rid in range(len(prompts)):
         assert eng.results[rid].tokens == colo.results[rid].tokens, rid
     _check_greedy(models, eng, prompts, STEPS)
@@ -555,6 +619,21 @@ DISAGG_CELLS = [(ARCH, 6, 1, 6, False), (MLA, 8, 1, 4, False),
                           for c in DISAGG_CELLS], indirect=["models"])
 def test_engine_disagg(models, I, TP, w, crash):
     _disagg(models, I, TP, w, crash)
+
+
+FP8_CELLS = {"equality-4-2": lambda m: _prefix_equality(m, 4, 2, "fp8"),
+             "fork": lambda m: _prefix_fork(m, "fp8"),
+             f"{ARCH}-6x1-w6": lambda m: _disagg(m, 6, 1, 6, False, "fp8")}
+
+
+@pytest.mark.parametrize("cell", list(FP8_CELLS))
+def test_engine_fp8_pools(models, cell):
+    """The short prefix-cache, fork and prefill-cell cells with fp8 pools
+    (codes with per-page scales), held to the reference's tolerance
+    contract rather than token equality (tokens with the cache on and off,
+    or with cells and colocated, may differ at near-ties); no frame leaks
+    and no pool moves, as with float32 pools."""
+    FP8_CELLS[cell](models)
 
 
 def test_admission_prefix_and_cells_validate():
