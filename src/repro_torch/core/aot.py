@@ -26,6 +26,7 @@ every state tensor's ``data_ptr()`` is the same after a step as before it
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from dataclasses import dataclass
@@ -34,6 +35,10 @@ import numpy as np
 import torch
 
 from ..kernels import paged_attention
+
+
+def _no_span(name: str, **attrs):
+    return contextlib.nullcontext(attrs)
 
 
 def _round_pow2(x: int, lo: int = 1) -> int:
@@ -147,6 +152,10 @@ class StepGraph:
         self.launches: dict = {}
 
     def capture(self) -> None:
+        with self.owner.span("aot.capture", key=self.key, stage="graph"):
+            self._capture()
+
+    def _capture(self) -> None:
         own = self.owner
         params, state, tables = own.graph_inputs(self.table_shapes)
         t0 = time.perf_counter()
@@ -212,6 +221,9 @@ class AOTGraphEngine:
         self.graph_inputs = graph_inputs
         self.pool = (None if graph_inputs is None
                      else torch.cuda.graph_pool_handle())
+        # ``span(name, **attrs)``: a context manager around each capture
+        # (the serving engine hands its tracer's ``span``)
+        self.span = _no_span
 
     def should_audit_donation(self) -> bool:
         return (self.audit_every_step
@@ -272,7 +284,8 @@ class AOTGraphEngine:
             self.stats.hits += 1
             return self._cache[key]
         self.stats.online_compiles += 1
-        return self._compile(key, offline=False)
+        with self.span("aot.capture", key=key, stage="build"):
+            return self._compile(key, offline=False)
 
     @property
     def num_graphs(self) -> int:

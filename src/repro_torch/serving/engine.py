@@ -116,6 +116,7 @@ from ..core.scheduler import BaseScheduler, DualBalancedScheduler
 from ..core.state import ClusterState, Request
 from ..kernels import quant
 from ..models import encdec, transformer
+from .trace import Tracer
 
 
 @dataclass
@@ -313,8 +314,20 @@ class NanoCPEngine:
         self.iterations = 0
         self._inflight: _Inflight | None = None
         self._t0 = time.monotonic()
+        # spans and counters (``serving/trace.py``); off, only the current
+        # step's phase durations (``timings``)
+        self.tracer = Tracer()
+        self.aot.span = self.tracer.span
+        # request spans while tracing: the recording they belong to, how
+        # much of ``finished`` they have seen, the rids whose first token
+        # the open step returned, each one's ``request.prefill`` span, and
+        # rid -> (first token, that span) of each request decoding
+        self._traced_recording = 0
+        self._traced_finishes = 0
+        self._first_tokens: list = []
+        self._prefill_spans: dict = {}
+        self._decode_open: dict = {}
         # hot-path introspection (tests, chip_smoke.py)
-        self.timings: dict = {}
         self.last_bucket: tuple | None = None
         self.last_rounds_used: int = 0
         # rows per MoE binding (B_s) of the last dispatched step's plan
@@ -350,6 +363,13 @@ class NanoCPEngine:
 
     def _now(self) -> float:
         return time.monotonic() - self._t0
+
+    @property
+    def timings(self) -> dict:
+        """The last step's phase durations in microseconds (``step_us``,
+        ``prefill_us``, ``lower_us``, ``harvest_us``, ...): the tracer's
+        view of the step, kept with tracing on or off."""
+        return self.tracer.timings
 
     def add_request(self, prompt_tokens, max_new_tokens: int,
                     now: float | None = None) -> int:
@@ -595,6 +615,8 @@ class NanoCPEngine:
             req.token_times.append(now)
             if self.eos is not None and first == self.eos:
                 eos_done.append(req)
+        if self.tracer.on:
+            self._first_tokens += [req.rid for req in reqs]
         return eos_done
 
     def _finish_prefill_eos(self, reqs: list, now: float) -> list:
@@ -751,7 +773,6 @@ class NanoCPEngine:
         scatter into possibly just-freed frames."""
         if not escalations:
             return
-        t0 = time.perf_counter()
         src = np.concatenate([e.src_coords for e in escalations], axis=1)
         dst = np.concatenate([e.dst_coords for e in escalations], axis=1)
         self._reshard(self.state, src, dst)
@@ -762,8 +783,6 @@ class NanoCPEngine:
         self.hot_path_stats["relax_tokens"] += sum(e.tokens_moved
                                                    for e in relaxed)
         self.hot_path_stats["reshard_tokens"] += int(src.shape[1])
-        self.timings["reshard_us"] = (self.timings.get("reshard_us", 0.0)
-                                      + (time.perf_counter() - t0) * 1e6)
 
     def _apply_copies(self, copies: list) -> None:
         """Apply owed data-plane KV copies ((src, dst) [3, T] coordinate
@@ -812,7 +831,9 @@ class NanoCPEngine:
         escs = self.scheduler.relieve_spill(self.cluster, err.rid,
                                             err.instance)
         if escs:
-            self._apply_escalations(escs)
+            with self.tracer.span("engine.reshard", escalations=len(escs),
+                                  spill_rid=err.rid):
+                self._apply_escalations(escs)
             self.hot_path_stats["spill_escalations"] += len(escs)
             return []
         req = self.cluster.active.get(err.rid)
@@ -845,7 +866,12 @@ class NanoCPEngine:
         Raises ``UnsupportedDrainError``, the cluster untouched, where
         per-slot state (SSM state, whisper's self caches) pins the slots
         (or the scheduler may not rebalance): the MoE binding cannot move
-        without its state."""
+        without its state.  Traced as an ``engine.drain`` span."""
+        with self.tracer.span("engine.drain", instance=instance,
+                              force=force):
+            return self._drain_instance(instance, force)
+
+    def _drain_instance(self, instance: int, force: bool) -> list:
         if self.cluster.role_of(instance) == "prefill":
             records = self.cluster.fail_instance(instance)
             if self.prefix_trie is not None:
@@ -880,7 +906,8 @@ class NanoCPEngine:
         except MemoryError:
             self.cluster.dead_instances.discard(instance)
             raise
-        self._apply_escalations(escalations)
+        with self.tracer.span("engine.reshard", escalations=len(escalations)):
+            self._apply_escalations(escalations)
         if stragglers:
             # a planned drop, not a crash: the in-flight iteration stays
             # valid, so only the cluster-level partial drop runs and the
@@ -1085,8 +1112,11 @@ class NanoCPEngine:
         not), with the live re-shard applied now.  Needs KV to move."""
         if not self._append_tokens:
             raise ValueError("compact needs an attention arch")
-        records = self.scheduler.relax(self.cluster, force=True)
-        self._apply_escalations(records)
+        with self.tracer.span("engine.compact") as a:
+            records = self.scheduler.relax(self.cluster, force=True)
+            with self.tracer.span("engine.reshard", escalations=len(records)):
+                self._apply_escalations(records)
+            a["relaxations"] = len(records)
         self.hot_path_stats["compacts"] += 1
         return records
 
@@ -1167,12 +1197,11 @@ class NanoCPEngine:
         if infl is None:
             return []
         self._inflight = None
-        t0 = time.perf_counter()
         if infl.event is not None:
             infl.event.synchronize()
         toks = infl.host.numpy()
         logits = None if infl.logits is None else infl.logits.cpu().numpy()
-        self.timings["harvest_us"] = (time.perf_counter() - t0) * 1e6
+        self.tracer.lap("engine.harvest")
         self.hot_path_stats["async_token_fetches"] += 1
         done = []
         for rid, req, i, b, last in infl.slots:
@@ -1222,23 +1251,29 @@ class NanoCPEngine:
         split of shared tails and lowering of the routing tables -> harvest
         the in-flight iteration's tokens -> patch input tokens -> upload
         tables -> dispatch this iteration.  Returns the requests whose
-        completion became visible during this call.
+        completion became visible during this call.  Each call is one
+        ``engine.step`` span of ``self.tracer``, its phases its children.
         """
-        t_step = time.perf_counter()
-        now = self._now() if now is None else now
-        self.timings = {}
+        tr = self.tracer
+        if tr.on and self._traced_recording != tr.recordings:
+            self._new_recording()
+        tr.begin_step()
+        try:
+            return self._step(self._now() if now is None else now)
+        finally:
+            t = tr.end_step()
+            if tr.on:
+                self._trace_requests(t)
+
+    def _step(self, now: float) -> list:
+        tr = self.tracer
         handoff_done = []
         if self.cluster.prefill_cells:
-            t0 = time.perf_counter()
             handoff_done = self._process_prefill_chunks(now)
-            self.timings["handoff_us"] = (time.perf_counter() - t0) * 1e6
+            tr.lap("engine.handoff")
         plan = self.scheduler.schedule(self.cluster, now)
         for req in plan.staged:
             self._stage_handoff(req)
-        # the re-shard and the copies run before this step's admissions
-        # scatter into (possibly just freed) frames
-        self._apply_escalations(plan.escalations + plan.relaxations)
-        self._apply_copies(plan.copies)
         # admission control's typed outcomes: the request never ran (no
         # tokens) and finishes here, flagged on its result
         dropped = []
@@ -1255,11 +1290,24 @@ class NanoCPEngine:
         self.hot_path_stats["rejected"] += len(plan.rejected)
         self.hot_path_stats["shed"] += len(plan.shed)
         self.hot_path_stats["preemptions"] += plan.preemptions
+        tr.lap("scheduler.schedule")
+        if tr.on:
+            self._trace_schedule(plan, now)
+        # the re-shard and the copies run before this step's admissions
+        # scatter into (possibly just freed) frames
+        escalations = plan.escalations + plan.relaxations
+        if escalations or plan.copies:
+            self._apply_escalations(escalations)
+            self._apply_copies(plan.copies)
+            tr.lap("engine.reshard")
+            if tr.on:
+                tr.note(escalations=len(escalations), copies=len(plan.copies))
         prefill_done = handoff_done + dropped
         if plan.admitted:
-            t0 = time.perf_counter()
             prefill_done += self._prefill_batch(plan.admitted, now)
-            self.timings["prefill_us"] = (time.perf_counter() - t0) * 1e6
+            tr.lap("engine.prefill")
+            if tr.on:
+                self._trace_prefill(plan.admitted)
         if not self.cluster.active:
             return prefill_done + self._harvest(now)
 
@@ -1267,7 +1315,6 @@ class NanoCPEngine:
         #    previous one (routing never depends on token VALUES).  A typed
         #    KV spill surfaces here, page table untouched: relieve it
         #    (escalate, or OOM-finish the request) and lower again ---------
-        t0 = time.perf_counter()
         spill_done = []
         attempts = len(self.cluster.active) + 1
         while True:
@@ -1286,19 +1333,21 @@ class NanoCPEngine:
                     raise
                 spill_done += self._handle_spill(err, now)
                 if not self.cluster.active:
+                    tr.lap("routing.lower")
                     return prefill_done + spill_done + self._harvest(now)
         key = self.aot.quantise(tbl.M, tbl.S, tbl.MB, tbl.W, tbl.R)
         if key[2] != tbl.MB:
             raise RuntimeError(f"bucket MB {key[2]} != table MB {tbl.MB}")
-        self.timings["lower_us"] = (time.perf_counter() - t0) * 1e6
-        t0 = time.perf_counter()
-        fn = self.aot.lookup_key(key)
-        self.timings["lookup_us"] = (time.perf_counter() - t0) * 1e6
-
-        # -- harvest the previous iteration ---------------------------------
         slots_at_lower = ({rid: self.cluster.slot_map[rid]
                            for rid in self.cluster.active}
                           if self.eos is not None and self.pipeline else None)
+        tr.lap("routing.lower")
+        fn = self.aot.lookup_key(key)
+        tr.lap("aot.lookup")
+        if tr.on:
+            tr.note(bucket=key)
+
+        # -- harvest the previous iteration ---------------------------------
         done = prefill_done + spill_done + self._harvest(now)
 
         # -- patch per-slot input tokens now that they are all known -------
@@ -1313,25 +1362,31 @@ class NanoCPEngine:
                 loc = slots_at_lower.get(req.rid)
                 if loc is not None:
                     tbl.slot_token[loc[0], loc[1]] = self.eos
-        t0 = time.perf_counter()
         tbl_dev = routing.as_device_arrays(tbl, self._dev_tables)
-        self.timings["tables_us"] = (time.perf_counter() - t0) * 1e6
+        tr.lap("routing.tables")
 
         # -- dispatch (async on CUDA) + start the token readback copy -------
-        t0 = time.perf_counter()
         check = self.aot.should_audit_donation()
         in_ptrs = self.aot.buffer_ptrs(self.state) if check else None
         self.state, toks, step_logits = fn(self.decode_params, self.state,
                                            tbl_dev)
         host, event = self._start_token_copy(toks)
-        self.timings["dispatch_us"] = (time.perf_counter() - t0) * 1e6
+        t_dispatch = tr.lap("dcp.dispatch")
+        batch_sizes = plan.batch_sizes()
+        pt = self.cluster.page_table
+        if tr.on:
+            # the KV the step's paged calls read, before this dispatch's
+            # length finishes free their pages
+            tr.count("dcp.dispatch", t_dispatch, rows=batch_sizes.tolist(),
+                     kv_tokens=[pt.instance_used_tokens(i) for i in
+                                range(self.cluster.num_instances)],
+                     rounds=int(tbl.R), bucket=key)
         if check:
             self.aot.note_donation(in_ptrs, self.state)
 
         # -- dispatch-time bookkeeping: length-based finishes are
         #    deterministic, so free their pages/slots right away ------------
         snapshot, length_done, holders = [], [], {}
-        pt = self.cluster.page_table
         for rid in list(self.cluster.active):
             req = self.cluster.active[rid]
             i, b = self.cluster.slot_map[rid]
@@ -1350,12 +1405,97 @@ class NanoCPEngine:
         self.iterations += 1
         self.last_bucket = key
         self.last_rounds_used = tbl.R
-        self.last_batch_sizes = plan.batch_sizes()
+        self.last_batch_sizes = batch_sizes
         self.hot_path_stats["steps"] += 1
+        tr.lap("engine.bookkeeping")
         if not self.pipeline:
             done += self._harvest(now)
-        self.timings["step_us"] = (time.perf_counter() - t_step) * 1e6
         return done
+
+    # -- request spans (tracing on) ------------------------------------- #
+    def _trace_schedule(self, plan, now: float) -> None:
+        """``request.queued`` of each request this step's plan admitted,
+        staged, shed or rejected: from its due time (``Request.arrival``)
+        to this step's start, ``start_time - arrival`` long on the
+        engine's clock (``now - arrival`` for one that never ran)."""
+        tr = self.tracer
+        tr.note(admitted=len(plan.admitted) + len(plan.staged),
+                shed=len(plan.shed), rejected=len(plan.rejected))
+        end = tr.root_start
+        for req, outcome in ([(r, "admitted") for r in plan.admitted]
+                             + [(r, "staged") for r in plan.staged]
+                             + [(r, "shed") for r in plan.shed]
+                             + [(r, "rejected") for r in plan.rejected]):
+            began = req.start_time if outcome in ("admitted", "staged") \
+                else now
+            wait = round((began - req.arrival) * 1e9)
+            tr.record("request.queued", end - wait, end, tr.last,
+                      {"rid": req.rid, "outcome": outcome,
+                       "wait_s": began - req.arrival})
+
+    def _trace_prefill(self, reqs: list) -> None:
+        """``request.prefill`` of each request of the batch, caused by (and
+        as long as) this step's ``engine.prefill`` span."""
+        tr = self.tracer
+        ph = tr.spans[-1]
+        new = [r.prompt_len - r.prefix_hit_tokens for r in reqs]
+        tr.note(requests=len(reqs),
+                prompt_tokens=sum(r.prompt_len for r in reqs),
+                new_tokens=sum(new))
+        for req, n in zip(reqs, new):
+            self._prefill_spans[req.rid] = tr.record(
+                "request.prefill", ph.start, ph.end, ph.id,
+                {"rid": req.rid, "prompt_tokens": req.prompt_len,
+                 "new_tokens": n})
+
+    def _finish_kind(self, req) -> str:
+        res = self.results.get(req.rid)
+        if req.status in ("oom", "degraded", "rejected", "shed"):
+            return req.status
+        if (self.eos is not None and res is not None and res.tokens
+                and res.tokens[-1] == self.eos):
+            return "eos"
+        return "length"
+
+    def _trace_requests(self, t: int) -> None:
+        """At a step's end: open ``request.decode`` for each request whose
+        first token this step returned, and close it for each request whose
+        finish it returned (token count and finish kind)."""
+        for rid in self._first_tokens:
+            self._decode_open[rid] = (t, self._prefill_spans.pop(rid, 0))
+        self._first_tokens = []
+        self._trace_finishes(t)
+
+    def _trace_finishes(self, t: int) -> None:
+        """``request.decode`` of each request finished since the last call
+        (tracing on), ending at ``t``.  One that was decoding before the
+        recording started starts at its start (``before_start``); one that
+        never ran (shed, rejected) is empty."""
+        tr = self.tracer
+        fin = self.finished
+        if len(fin) < self._traced_finishes:
+            self._traced_finishes = 0
+        for req in fin[self._traced_finishes:]:
+            res = self.results.get(req.rid)
+            tokens = len(res.tokens) if res else 0
+            attrs = {"rid": req.rid, "tokens": tokens,
+                     "finish": self._finish_kind(req)}
+            opened = self._decode_open.pop(req.rid, None)
+            if opened is None:
+                opened = (t, 0)
+                if tokens:
+                    opened = (tr.anchors[0][0], 0)
+                    attrs["before_start"] = True
+            tr.record("request.decode", opened[0], t, opened[1], attrs)
+        self._traced_finishes = len(fin)
+
+    def _new_recording(self) -> None:
+        """A recording started since the last step: finishes before it
+        are not its to trace."""
+        self._traced_recording = self.tracer.recordings
+        self._traced_finishes = len(self.finished)
+        self._first_tokens, self._prefill_spans = [], {}
+        self._decode_open = {}
 
     @property
     def pending(self) -> bool:
