@@ -4,11 +4,12 @@
     python3 chip_smoke.py --kernels    # phases 1-2 only, no result line
     python3 chip_smoke.py --launch     # phases 1 and 17 only, no result line
     python3 chip_smoke.py --examples   # phases 1 and 10b only, no result line
+    python3 chip_smoke.py --moe-experts  # phase 1 and 2's moe_experts rows only
 
 Phases, each printing one JSON line:
 
   1. device  — the card (name, power limit), CUDA version, kernel build time
-               (both kernels are built from src/repro_torch/csrc by nvcc).
+               (every kernel is built from src/repro_torch/csrc by nvcc).
   2. kernels — each Hopper kernel held against its plain torch version on
                the card, in float32 (atol = rtol = 1e-4) and bfloat16
                (atol = rtol = 2e-2), at the main path's shapes; kernel,
@@ -20,7 +21,13 @@ Phases, each printing one JSON line:
                Edge rows ("kernel-edge") hold both kernels at the split and
                tile boundaries, MB = 1, zero-length rows, v as a strided
                view of k (MLA's 40 / 32 head dims), bf16 head dims 16-256,
-               kv_len inside one tile and Dk != Dv.
+               kv_len inside one tile and Dk != Dv.  The routed expert
+               FFN ("moe_experts" rows) runs one MoE layer's decode call of
+               each benchmark cell (Phi-3.5-MoE, DeepSeek-V3: full widths,
+               4 instances of M = 8 and 16 slots, the idle slots one row)
+               in both types, beside its bound (the reached experts'
+               weights once, rows in and out), its plain version and the
+               bmm path over the capacity bins that it replaces.
   3. engine  — full-width TinyLlama-1.1B (random float32 weights, seed 0)
                through NanoCPEngine on a virtual (I=4, TP=2) mesh, pipelined
                and not.  Every engine run replays one CUDA graph per bucket
@@ -302,6 +309,7 @@ import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -321,6 +329,7 @@ from repro_torch.core.scheduler import (AdmissionController,  # noqa: E402
                                         DualBalancedScheduler, _mk_plan)
 from repro_torch.kernels import build, ops, quant, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_experts  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.launch import cells as launch_cells  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
@@ -636,6 +645,85 @@ def flash_row(name: str, q, k, v, kl, qo, timed: bool,
     return row
 
 
+# one MoE layer's decode call of each benchmark cell: (experts, top k, D,
+# F, live rows an instance) at 4 instances of M slots, the rest idle
+MOE_EXPERT_CELLS = {"phi35moe": (16, 2, 4096, 6400, 7),
+                    "dsv3": (256, 8, 7168, 2048, 8)}
+
+
+def moe_experts_weights(cell: str, dtype) -> dict:
+    E, _, D, F, _ = MOE_EXPERT_CELLS[cell]
+    g = torch.Generator(device=DEV).manual_seed(E)
+    return {n: torch.randn(shape, device=DEV, generator=g,
+                           dtype=dtype).mul_(shape[1] ** -0.5)
+            for n, shape in (("wi_gate", (E, D, F)), ("wi_up", (E, D, F)),
+                             ("wo", (E, F, D)))}
+
+
+def moe_experts_row(cell: str, M: int, p: dict) -> dict:
+    """Hold the routed expert kernel against its plain version on one MoE
+    layer's decode call (live rows random, the idle slots one row, routed
+    by a random router at capacity C = M, as the cells' E/k capacity
+    factor makes it) and time it beside its bound (each reached expert's
+    weights once, the rows in and out), the plain version and the bmm
+    path over the capacity bins (dispatch, three bmm, combine), which it
+    replaces on the card."""
+    E, k, D, F, live = MOE_EXPERT_CELLS[cell]
+    I = 4
+    dtype = p["wi_gate"].dtype
+    dn = str(dtype).replace("torch.", "")
+    g = torch.Generator(device=DEV).manual_seed(M)
+    x = torch.randn(I, M, D, device=DEV, generator=g)
+    x[:, live:] = x[0, 0]
+    router = torch.randn(D, E, device=DEV, generator=g) * D ** -0.5
+    w, idx = moe.router_topk(SimpleNamespace(num_experts_per_tok=k), router, x)
+    src, slot_of = moe.group_by_expert(idx, E, M)
+    x = x.to(dtype)
+    fill = torch.empty((I, E), dtype=torch.int32, device=DEV)
+    got = moe_experts.routed_experts(p, x, w, src, slot_of, fill)
+    want = moe_experts.plain(p, x, w, src, slot_of)
+    torch.cuda.synchronize()
+    err = check_close(f"moe_experts {cell} {dn} M={M}", got, want, dtype)
+    rows, touched = int(fill.sum()), int((fill.sum(0) > 0).sum())
+
+    def bmm():
+        out = moe.expert_ffn(p, moe_parallel._dispatch(x, src, E // I))
+        return moe.combine(w, moe_parallel._combine(out, I), slot_of)
+    torch.cuda.synchronize()
+    check_close(f"moe_experts bmm path {cell} {dn} M={M}", bmm(), want, dtype)
+    ms = time_ms(lambda: moe_experts.routed_experts(p, x, w, src, slot_of))
+    plain_ms = time_ms(lambda: moe_experts.plain(p, x, w, src, slot_of),
+                       iters=3, warmup=1)
+    bmm_ms = time_ms(bmm, iters=3, warmup=1)
+    es = x.element_size()
+    b, f = touched * 3 * D * F * es + 2 * nbytes(x), 2 * 3 * D * F * rows
+    bms, by = bound_ms(b, f, dtype)
+    return {"phase": "kernel", "name": "moe_experts", "cell": cell,
+            "dtype": dn, "inputs": "cell's decode call",
+            "shape": {"I": I, "M": M, "E": E, "k": k, "D": D, "F": F,
+                      "live_rows": I * live, "routed_rows": rows,
+                      "padded_rows": E * I * M, "experts_touched": touched,
+                      "largest_bin": int(fill.sum(0).max())},
+            "max_abs_err": err, "tol": TOL[dtype], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "share_of_bound": bms / ms, "library_ms": bmm_ms,
+            "library": "bmm over the capacity bins (the path it replaces)"}
+
+
+def run_moe_experts_rows() -> list:
+    rows = []
+    for cell in MOE_EXPERT_CELLS:
+        for dtype in (torch.float32, torch.bfloat16):
+            p = moe_experts_weights(cell, dtype)
+            for M in (8, 16):
+                row = moe_experts_row(cell, M, p)
+                emit(row)
+                rows.append(row)
+            del p
+            free_memory()
+    return rows
+
+
 def run_kernel_phase(gen) -> dict:
     summary = {}
 
@@ -696,6 +784,7 @@ def run_kernel_phase(gen) -> dict:
     run_edge_checks(gen)
     run_wide_edge_checks()
     run_whisper_edge_checks()
+    summary["moe_experts"] = run_moe_experts_rows()
     return summary
 
 
@@ -1170,6 +1259,14 @@ class ExpertLoads:
         return [out[k] for k in sorted(out)]
 
 
+def moe_layers(cfg) -> int:
+    """The model's MoE layers: each launches the routed expert kernel once
+    per decode step (prefill keeps the bmm path)."""
+    if cfg.is_encoder_decoder:
+        return 0
+    return cfg.num_blocks * sum(k["ffn"] == "moe" for k in cfg.block_pattern())
+
+
 def attention_layers(cfg) -> int:
     """The model's attention layers: each launches the paged kernel once
     per decode step and flash once per prefilled request."""
@@ -1205,6 +1302,7 @@ def zero_launches() -> None:
     pa.LAUNCHES_BY_PAGE.clear()
     fa.LAUNCHES = 0
     fa.LAUNCHES_BY_KIND.clear()
+    moe_experts.LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -1310,6 +1408,9 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
     steps = eng.hot_path_stats["steps"]
     n_attn = attention_layers(cfg)
     want = {"paged_decode": steps * n_attn, "flash_fwd": len(prompts) * n_attn}
+    # decode's MoE layers go through the routed expert kernel, once a step
+    launches["moe_experts"] = moe_experts.LAUNCHES
+    want["moe_experts"] = steps * moe_layers(cfg)
     if cross is not None:
         # the encoder once per shape group of each admitted batch; the
         # decoder prefix's causal self-attention and its cross-attention
@@ -1323,7 +1424,8 @@ def run_engine(cfg, params, prompts, pipeline: bool, *, kv_dtype: str = "bf16",
                  f"{want_kinds}")
     if launches != want:
         fail(f"{tag}: launches {launches}, expected {want} "
-             f"(steps x attention layers, prompts x attention layers)")
+             f"(steps x attention layers, prompts x attention layers, "
+             f"steps x MoE layers)")
     want_pages = {}
     if n_attn:
         pool = ("cross_k_pool" if cfg.is_encoder_decoder
@@ -1473,7 +1575,11 @@ MOE_RANGES = {
     "moe.all_to_all": ((moe_parallel, "_dispatch"),
                        (moe_parallel, "_combine")),
     "moe.gate_combine": ((moe, "combine"),),
+    "moe.routed_experts": ((moe_experts, "routed_experts"),),
 }
+# the bmm path's pieces, which decode on the card no longer runs (the
+# routed expert kernel does their work), and the kernel prefill never runs
+MOE_BMM_PATH = ("moe.expert_ffn", "moe.all_to_all", "moe.gate_combine")
 # the decode step's mixers (an SSD layer; an attention layer, phases 1-4
 # and its projections), for the SSM models' profiles.  ``build_decode_step``
 # binds the attention layer when a bucket's step is built, so the ranges
@@ -1631,20 +1737,19 @@ def profile_engine(cfg, params, prompts, cuda_graphs: bool) -> tuple:
                               if "paged_split_kernel" in e.key
                               or "merge_kernel" in e.key) / device_us}
     if cfg.is_moe and not cuda_graphs:
-        row["moe_share"] = {k: v * 1e3 / device_us
-                            for k, v in range_device_ms(prof).items()}
+        row["moe_share"] = {k: v * 1e3 / device_us for k, v in
+                            range_device_ms(prof, MOE_BMM_PATH).items()}
     if cfg.family in ("ssm", "hybrid") and not cuda_graphs:
         # device ms per step by piece (the caller's LAYER_RANGES were on
         # from the engine's first step)
-        absent = set() if cfg.is_moe else set(MOE_RANGES)
+        absent = set(MOE_BMM_PATH) if cfg.is_moe else set(MOE_RANGES)
         if not cfg.has_attention:
             absent.add("layer.attention")
         ms = range_device_ms(prof, absent, {**LAYER_RANGES, **MOE_RANGES})
         split = {"ssm_layers": ms["layer.ssm"],
                  "attention": ms["layer.attention"],
-                 "moe_experts": ms["moe.expert_ffn"],
-                 "moe_routing_all_to_all_combine": sum(
-                     ms[k] for k in MOE_RANGES if k != "moe.expert_ffn")}
+                 "moe_experts": ms["moe.routed_experts"],
+                 "moe_routing": ms["moe.routing"]}
         split["rest"] = device_us / 1e3 - sum(split.values())
         row["device_ms_per_step_split"] = {k: v / PROFILE_STEPS
                                            for k, v in split.items()}
@@ -1727,7 +1832,7 @@ def profile_prefill(cfg, params, prompt) -> dict:
     if cfg.is_moe:
         # prefill groups per request: no all-to-all
         row["moe_device_ms"] = ms = range_device_ms(
-            prof, absent=("moe.all_to_all",))
+            prof, absent=("moe.all_to_all", "moe.routed_experts"))
         row["moe_share"] = {k: v / row["device_ms"] for k, v in ms.items()}
     if cfg.family in ("ssm", "hybrid"):
         ms = range_device_ms(prof, ranges=SSD_RANGES)
@@ -1756,6 +1861,9 @@ def main() -> None:
     if "--examples" in sys.argv[1:]:
         run_examples_phase()
         return      # examples phase only: no other phase, no result line
+    if "--moe-experts" in sys.argv[1:]:
+        run_moe_experts_rows()
+        return      # the routed expert kernel's rows only: no result line
     gen = torch.Generator(device=DEV).manual_seed(0)
     ksum = run_kernel_phase(gen)
     if "--kernels" in sys.argv[1:]:
@@ -1966,6 +2074,25 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "share_of_bound": r["share_of_bound"],
             "dtype": r["dtype"], "page_dtype": r["page_dtype"]})
+    # the routed expert FFN at each cell's decode call (M 8 and 16); its
+    # launches are the Phi-3.5-MoE and DeepSeek-V3 phases' pipelined runs
+    moe_launches = {"phi35moe": moe_runs["pipelined"]["launches"]["moe_experts"],
+                    "dsv3": ds["pipelined"]["launches"]["moe_experts"]}
+    for cell, M in ((c, m) for c in MOE_EXPERT_CELLS for m in (8, 16)):
+        rows = [r for r in ksum["moe_experts"]
+                if r["cell"] == cell and r["shape"]["M"] == M]
+        f32, bf16 = (next(r for r in rows if r["dtype"] == d)
+                     for d in ("float32", "bfloat16"))
+        kernels.append({
+            "name": f"moe_experts_{cell}_M{M}", "route": "cuda",
+            "source": "src/repro_torch/csrc/moe_experts.cu",
+            "replaces": None, "launches": moe_launches[cell],
+            "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
+            "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+            "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+            "share_of_bound": f32["share_of_bound"], "bf16_ms": bf16["ms"],
+            "bf16_bound_ms": bf16["bound_ms"],
+            "bf16_library_ms": bf16["library_ms"]})
     # the flash op under autograd on the train path (its backward, plain
     # torch and not a kernel, in the bwd_* keys)
     kernels.append({"name": "flash_fwd_train", "route": "cuda",

@@ -34,7 +34,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels import paged_attention
+from ..kernels import moe_experts, paged_attention
+
+# the kernel wrappers whose launches a replay counts: each tallies the calls
+# recorded under capture in ``CAPTURED`` (name -> calls) and counts them
+# with ``count_launches(name, n)``
+COUNTED = (paged_attention, moe_experts)
 
 
 def _no_span(name: str, **attrs):
@@ -140,7 +145,8 @@ class StepGraph:
     replay of any graph of the engine's pool may overwrite them, so the
     caller reads both before it dispatches again (the engine copies the
     tokens to pinned memory at dispatch and reads kept logits at harvest).
-    Paged-kernel launches recorded at capture are counted at each replay."""
+    The kernel launches recorded at capture (``COUNTED``) are counted at
+    each replay."""
 
     def __init__(self, owner: "AOTGraphEngine", key: tuple, fn,
                  table_shapes: dict):
@@ -161,7 +167,8 @@ class StepGraph:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         stream = _capture_stream(torch.cuda.current_device())
-        paged_attention.CAPTURED.clear()
+        for mod in COUNTED:
+            mod.CAPTURED.clear()
         try:
             with torch.cuda.stream(stream):
                 graph.capture_begin(pool=own.pool)
@@ -173,8 +180,9 @@ class StepGraph:
             raise RuntimeError(f"CUDA graph capture of bucket {self.key} "
                                f"failed: {err}") from err
         finally:
-            self.launches = dict(paged_attention.CAPTURED)
-            paged_attention.CAPTURED.clear()
+            self.launches = {mod: dict(mod.CAPTURED) for mod in COUNTED}
+            for mod in COUNTED:
+                mod.CAPTURED.clear()
         self.graph, self.outputs = graph, (toks, logits)
         self.audit = InPlaceAudit(params, state, tables)
         own.stats.captured += 1
@@ -188,8 +196,9 @@ class StepGraph:
             return out
         self.audit.check(params, state, tables)
         self.graph.replay()
-        for name, n in self.launches.items():
-            paged_attention.count_launches(name, n)
+        for mod, counts in self.launches.items():
+            for name, n in counts.items():
+                mod.count_launches(name, n)
         return (state, *self.outputs)
 
 

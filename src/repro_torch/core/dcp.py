@@ -818,14 +818,17 @@ def _ssm_layer(cfg: ModelConfig, dims: DecodeDims, lp: dict, x, sstate):
     return torch.bmm(rows, mx["out_proj"]).sum(dim=0)    # psum over tp
 
 
-def _pod_moe_ffn(cfg: ModelConfig, dims: DecodeDims, p: dict, h):
+def _pod_moe_ffn(cfg: ModelConfig, dims: DecodeDims, p: dict, h, fill):
     """The wide-EP MoE FFN, each pod's instances an expert group of their
-    own (one group when ``dims.pods`` is 1)."""
+    own (one group when ``dims.pods`` is 1).  ``fill`` [I, E] receives each
+    (instance, expert) bin's kept rows."""
     ep = dims.data_size // dims.pods
     if dims.pods == 1:
-        return moe_decode_ffn(cfg, p, h, data_size=ep, tp=dims.tp)
-    return torch.cat([moe_decode_ffn(cfg, p, hp, data_size=ep, tp=dims.tp)
-                      for hp in h.chunk(dims.pods)])
+        return moe_decode_ffn(cfg, p, h, data_size=ep, tp=dims.tp, fill=fill)
+    return torch.cat([moe_decode_ffn(cfg, p, hp, data_size=ep, tp=dims.tp,
+                                     fill=fp)
+                      for hp, fp in zip(h.chunk(dims.pods),
+                                        fill.chunk(dims.pods))])
 
 
 def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
@@ -840,6 +843,12 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
     fp8 leaves (``quantize_decode_weights``) are cast to bfloat16 at the top
     of each block, right after ``block_slice``, as the reference does;
     nothing else in the step sees the storage format.
+
+    Each call also writes the kept rows of every (MoE layer, instance,
+    expert) bin, in layer order, into ``step.expert_bins`` [L_moe, I, E]
+    int32 on the step's device (None for a model without MoE layers).  The
+    tensor is made at the first call and written in place after, so a CUDA
+    graph of the step rewrites it at each replay; nothing waits on it.
     """
     check_supported(cfg)
     check_dims(dims)
@@ -856,6 +865,7 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
     attn_layer = _mla_layer if cfg.is_mla else _attn_layer
     names = (("kv_pool", None, "kv_scale", None) if cfg.is_mla
              else ("k_pool", "v_pool", "k_scale", "v_scale"))
+    moe_layers = cfg.num_blocks * sum(k["ffn"] == "moe" for k in pattern)
 
     def step(params, state, tbl):
         tokens = tbl["slot_token"]                                # [I, M]
@@ -863,6 +873,10 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
         tbl = dict(_mask_eos_slots(dims, tbl, tokens))
         emb = params["embed"]["tok"]
         x = _embed_lookup(emb, tokens, tp).to(emb.dtype).reshape(I * M, -1)
+        if moe_layers and step.expert_bins is None:
+            step.expert_bins = torch.zeros((moe_layers, I, cfg.num_experts),
+                                           dtype=torch.int32, device=x.device)
+        mi = 0                        # MoE layer ordinal in the step
         for bi in range(cfg.num_blocks):
             bp = dequantize_at_use(block_slice(params["blocks"], bi))
             ai = si = 0               # attention / SSM ordinal in the block
@@ -882,7 +896,9 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
                     continue
                 h = L.apply_norm(cfg, lp["ln2"], x)
                 if kind["ffn"] == "moe":
-                    x = x + _pod_moe_ffn(cfg, dims, lp["ffn"], h)
+                    x = x + _pod_moe_ffn(cfg, dims, lp["ffn"], h,
+                                         step.expert_bins[mi])
+                    mi += 1
                 else:
                     x = x + dense_decode_ffn(cfg, lp["ffn"], h, tp)
         x = L.apply_norm(cfg, params["final_norm"], x)
@@ -892,6 +908,7 @@ def build_decode_step(cfg: ModelConfig, dims: DecodeDims):
         nxt = torch.where(tbl["slot_active"] != 0, nxt, torch.full_like(nxt, -1))
         return state, nxt, logits
 
+    step.expert_bins = None
     return step
 
 

@@ -10,6 +10,12 @@ transpose of the [I_src, I_dst, ...] buffer.  Each expert's FFN runs
 whole (the reference's tp chunks, summed by its psum, are the same
 product in another order); the dense FFN's psum over tp is a sum over
 the tp dim.
+
+That dispatch, ``bmm`` over every capacity slot and combine is the plain
+path (CPU and meta tensors, ``ops.FORCE_IMPL = "ref"``).  A CUDA tensor
+takes ``kernels/moe_experts.py`` on the same routing tables: it computes
+the routed rows only and reads only the weights of the experts they
+reach.
 """
 from __future__ import annotations
 
@@ -17,11 +23,13 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..kernels import moe_experts, ops
 from ..models import moe as moe_mod
 
 
 def moe_decode_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-                   data_size: int, tp: int) -> torch.Tensor:
+                   data_size: int, tp: int,
+                   fill: torch.Tensor | None = None) -> torch.Tensor:
     """x [I*T, D]: T rows per instance, instance-major -> [I*T, D].
 
     Routing and grouping are per instance, so capacity C bounds the rows
@@ -29,7 +37,9 @@ def moe_decode_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     bounded receive buffers; the scheduler's batch balance bounds them).
     Params (the prefill layout, unsharded): ``router`` [D, E] float32,
     ``wi_gate``/``wi_up`` [E, D, F], ``wo`` [E, F, D], optional dense
-    ``shared`` expert.
+    ``shared`` expert.  ``fill`` [I, E] int32, when given, receives each
+    bin's kept rows (every routed row where none is dropped), on the
+    device.
     """
     I, E = data_size, cfg.num_experts
     if E % I:
@@ -42,9 +52,15 @@ def moe_decode_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
     w, idx = moe_mod.router_topk(cfg, p["router"], xi)
     src_token, slot_of = moe_mod.group_by_expert(idx, E, C)
-    tok = _dispatch(xi, src_token, e_local)                     # [E, I*C, D]
-    out = moe_mod.expert_ffn(p, tok)                            # [E, I*C, D]
-    y = moe_mod.combine(w, _combine(out, I), slot_of).reshape(I * T, D)
+    if ops._plain(x):
+        tok = _dispatch(xi, src_token, e_local)                 # [E, I*C, D]
+        out = moe_mod.expert_ffn(p, tok)                        # [E, I*C, D]
+        y = moe_mod.combine(w, _combine(out, I), slot_of).reshape(I * T, D)
+        if fill is not None:
+            fill.copy_((src_token.reshape(I, E, C) < T).sum(-1))
+    else:
+        y = moe_experts.routed_experts(p, xi, w, src_token, slot_of,
+                                       fill).reshape(I * T, D)
     if cfg.num_shared_experts:
         sh = p["shared"]
         y = y + dense_decode_ffn(cfg, {**sh, "wo": sh["wo"].reshape(

@@ -116,6 +116,7 @@ from ..core.scheduler import BaseScheduler, DualBalancedScheduler
 from ..core.state import ClusterState, Request
 from ..kernels import quant
 from ..models import encdec, transformer
+from ..models import moe as moe_mod
 from .trace import Tracer
 
 
@@ -153,6 +154,9 @@ class _Inflight:
     # [I, M, V] device logits when the engine keeps them, else None (a
     # graph's static logits: read at harvest, before the next replay)
     logits: object = None
+    # tracing on: (the step's expert bins [L_moe, I, E] copied to the host
+    # with the tokens, dispatch stamp, step, capacity C) for the counter
+    bins: tuple | None = None
 
 
 class UnsupportedDrainError(RuntimeError):
@@ -303,7 +307,7 @@ class NanoCPEngine:
         self._reshard = migrate.KVReshard(self._scatter)
         self._arena = routing.TableArena()
         self._dev_tables = routing.DeviceTables(self.device)
-        self._tok_host: dict = {}        # [I, M] shape -> pinned host buffer
+        self._host_bufs: dict = {}     # (shape, dtype) -> pinned host buffer
         self._event = (torch.cuda.Event() if self.device.type == "cuda"
                        else None)
         self.next_tok: dict = {}
@@ -1202,6 +1206,8 @@ class NanoCPEngine:
         toks = infl.host.numpy()
         logits = None if infl.logits is None else infl.logits.cpu().numpy()
         self.tracer.lap("engine.harvest")
+        if infl.bins is not None and self.tracer.on:
+            self._count_expert_bins(*infl.bins)
         self.hot_path_stats["async_token_fetches"] += 1
         done = []
         for rid, req, i, b, last in infl.slots:
@@ -1227,16 +1233,39 @@ class NanoCPEngine:
                     done.append(req)
         return done
 
+    def _count_expert_bins(self, bins, t: int, step: int, C: int) -> None:
+        """Counter ``moe.expert_bins`` of a harvested step from its bins
+        [L_moe, I, E]: the rows routed in all MoE layers, the rows the
+        capacity bins hold (the ``bmm`` path's work), and the experts some
+        row reached, a mean over the layers."""
+        bins = bins.numpy()
+        L, I, E = bins.shape
+        self.tracer.count(
+            "moe.expert_bins", t, step=step, rows=int(bins.sum()),
+            padded_rows=L * E * I * C,
+            experts_touched=float((bins.sum(axis=1) > 0).sum(axis=1).mean()))
+
+    def _host_copy(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` on the host: on CUDA a non-blocking copy into a pinned
+        buffer of its shape and dtype (reused: read it before the next such
+        copy; the next token copy's event covers it), on the CPU a clone
+        (the next step rewrites ``t``)."""
+        if self.device.type != "cuda":
+            return t.clone()
+        key = (tuple(t.shape), t.dtype)
+        host = self._host_bufs.get(key)
+        if host is None:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host_bufs[key] = host
+        host.copy_(t, non_blocking=True)
+        return host
+
     def _start_token_copy(self, toks: torch.Tensor):
         """Device tokens -> host: pinned buffer + non-blocking copy + event
         on CUDA; the CPU result is already on the host."""
         if self.device.type != "cuda":
             return toks, None
-        host = self._tok_host.get(tuple(toks.shape))
-        if host is None:
-            host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
-            self._tok_host[tuple(toks.shape)] = host
-        host.copy_(toks, non_blocking=True)
+        host = self._host_copy(toks)
         self._event.record()
         return host, self._event
 
@@ -1370,6 +1399,10 @@ class NanoCPEngine:
         in_ptrs = self.aot.buffer_ptrs(self.state) if check else None
         self.state, toks, step_logits = fn(self.decode_params, self.state,
                                            tbl_dev)
+        # tracing on: the step's expert bins go to the host with its tokens
+        bins = (getattr(getattr(fn, "fn", fn), "expert_bins", None)
+                if tr.on else None)
+        host_bins = None if bins is None else self._host_copy(bins)
         host, event = self._start_token_copy(toks)
         t_dispatch = tr.lap("dcp.dispatch")
         batch_sizes = plan.batch_sizes()
@@ -1402,6 +1435,9 @@ class NanoCPEngine:
             self.cluster.finish(req, now)
         self._inflight = _Inflight(host, event, snapshot, holders,
                                    step_logits if self.keep_logits else None)
+        if host_bins is not None:
+            self._inflight.bins = (host_bins, t_dispatch, tr.steps,
+                                   moe_mod.capacity(self.cfg, key[0]))
         self.iterations += 1
         self.last_bucket = key
         self.last_rounds_used = tbl.R

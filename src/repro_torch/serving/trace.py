@@ -200,9 +200,12 @@ class Tracer:
         self.spans.append(Span(sid, parent, name, start, end, attrs))
         return sid
 
-    def count(self, name: str, t: int, **values) -> None:
-        """Append a counter reading at ``t`` (tracing on)."""
-        self.counters.append(Count(name, t, self.steps, values))
+    def count(self, name: str, t: int, step: int | None = None,
+              **values) -> None:
+        """Append a counter reading at ``t`` (tracing on), of the current
+        step unless ``step`` names an earlier one."""
+        self.counters.append(Count(name, t, self.steps if step is None
+                                   else step, values))
 
     # ------------------------------------------------------------------ #
     def request(self, rid: int) -> list:

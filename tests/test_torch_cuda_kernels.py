@@ -22,8 +22,12 @@ Tolerance: float32 atol = rtol = 1e-4, bfloat16 2e-2 (as in chip_smoke.py).
 import pytest
 import torch
 
+from types import SimpleNamespace
+
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops, paged_attention as pa, quant, ref
+from repro_torch.kernels import moe_experts, ops, paged_attention as pa
+from repro_torch.kernels import quant, ref
+from repro_torch.models import moe
 
 pytestmark = pytest.mark.cuda
 
@@ -774,3 +778,64 @@ def test_paged_raw_code_pages_vs_plain(dtype, page_dtype):
         o2, l2 = ref.paged_decode_attention(q, k, v, bt, ln)
         _close(o, o2, dtype)
         _close(l, l2, dtype)
+
+
+# the routed expert FFN at the benchmark cells' decode shapes: (experts,
+# top k, D, F, live rows an instance) at I 4, the rest of the M slots idle
+MOE_CELLS = {"phi35moe": (16, 2, 4096, 6400, 7),
+             "dsv3": (256, 8, 7168, 2048, 8)}
+_MOE_WEIGHTS: dict = {}
+
+
+def _moe_weights(cell, dtype):
+    """One cell's expert weights (~45 GB for DeepSeek-V3 in float32), kept
+    for the next case of the same cell and dtype, dropped before another
+    is made."""
+    key = (cell, dtype)
+    if key not in _MOE_WEIGHTS:
+        _MOE_WEIGHTS.clear()
+        torch.cuda.empty_cache()
+        E, _, D, F, _ = MOE_CELLS[cell]
+        g = torch.Generator(device="cuda").manual_seed(E)
+        _MOE_WEIGHTS[key] = {
+            n: torch.randn(shape, device="cuda", generator=g,
+                           dtype=dtype).mul_(shape[1] ** -0.5)
+            for n, shape in (("wi_gate", (E, D, F)), ("wi_up", (E, D, F)),
+                             ("wo", (E, F, D)))}
+    return _MOE_WEIGHTS[key]
+
+
+def moe_call(cell, M, dtype):
+    """(weights, x [4, M, D], w, src_token, slot_of) of one MoE layer's
+    decode call: the live rows random, the idle slots one row (as an idle
+    slot's token is), routed by a random router at capacity C = M."""
+    E, k, D, F, live = MOE_CELLS[cell]
+    I = 4
+    g = torch.Generator(device="cuda").manual_seed(M)
+    x = torch.randn(I, M, D, device="cuda", generator=g)
+    x[:, live:] = x[0, 0]
+    router = torch.randn(D, E, device="cuda", generator=g) * D ** -0.5
+    w, idx = moe.router_topk(SimpleNamespace(num_experts_per_tok=k), router, x)
+    src, slot_of = moe.group_by_expert(idx, E, M)
+    return _moe_weights(cell, dtype), x.to(dtype), w, src, slot_of
+
+
+@pytest.mark.parametrize("M", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cell", list(MOE_CELLS))
+def test_moe_experts_kernel_vs_plain(cell, dtype, M):
+    """The routed expert FFN at the cells' widths against its plain version:
+    the output, and each bin's kept rows, which equal the routes' bins."""
+    p, x, w, src, slot_of = moe_call(cell, M, dtype)
+    E, k = MOE_CELLS[cell][:2]
+    fill, fill2 = (torch.full((4, E), -1, dtype=torch.int32, device="cuda")
+                   for _ in range(2))
+    n0 = moe_experts.LAUNCHES
+    got = moe_experts.routed_experts(p, x, w, src, slot_of, fill)
+    assert moe_experts.LAUNCHES == n0 + 1
+    want = moe_experts.plain(p, x, w, src, slot_of, fill2)
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
+    assert torch.equal(fill, fill2)
+    assert fill.sum() == 4 * M * k          # capacity M: nothing dropped

@@ -12,7 +12,7 @@ import torch
 from repro_torch.configs import CONFIGS, reduced
 from repro_torch.core.aot import StepGraph
 from repro_torch.core.bucketing import CPBuckets, ShapeBuckets
-from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import moe_experts, paged_attention as pa
 from repro_torch.models import transformer
 from repro_torch.serving.engine import NanoCPEngine
 
@@ -83,6 +83,30 @@ def test_graph_replay_equals_eager(arch, over, kw, pipeline):
         for a, b in zip(graph.step_logits[rid], eager.step_logits[rid]):
             assert np.array_equal(a, b), rid
     graph.close()
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v3"])
+def test_moe_experts_counted_through_replays(arch):
+    """A graph engine's MoE layers go through the routed expert kernel:
+    its launch count rises by the MoE layers at every decode step, replays
+    included, and the steps' expert bins hold every routed row."""
+    eng = _engine(arch, True, over=MOE)
+    n0 = moe_experts.LAUNCHES
+    eng.run(max_iters=60)
+    torch.cuda.synchronize()
+    st = eng.aot.stats
+    assert st.hits > st.captured >= 1
+    moe_layers = eng.cfg.num_blocks * sum(
+        k["ffn"] == "moe" for k in eng.cfg.block_pattern())
+    assert moe_layers >= 1
+    assert (moe_experts.LAUNCHES - n0
+            == eng.hot_path_stats["steps"] * moe_layers)
+    k = eng.cfg.num_experts_per_tok
+    for key in eng.aot.cached_keys():
+        bins = eng.aot.lookup_key(key).fn.expert_bins
+        assert bins.shape[0] == moe_layers
+        assert (bins.sum(dim=(1, 2)) == 4 * key[0] * k).all()
+    eng.close()
 
 
 def test_kernel_instance_first_met_under_capture():

@@ -17,9 +17,13 @@ import torch
 from repro.configs import CONFIGS as JCONFIGS, reduced as jreduced
 from repro.models import (init_params as jinit, layers as jlayers,
                           moe as jmoe, transformer as jtransformer)
+from types import SimpleNamespace
+
 from repro_torch import params as P
 from repro_torch.configs import CONFIGS, reduced
+from repro_torch.core import dcp
 from repro_torch.core.moe_parallel import moe_decode_ffn
+from repro_torch.kernels import moe_experts, ops
 from repro_torch.models import layers, moe, transformer
 
 ARCH = "phi3.5-moe-42b-a6.6b"
@@ -150,6 +154,106 @@ def test_moe_decode_ffn_matches_jax_moe_ffn(I, TP, shared):
                                                    jnp.asarray(x[i * T:(i + 1) * T])))
                            for i in range(I)])
     _close(got.numpy(), want)
+
+
+# the routed-rows path (``kernels/moe_experts.py``) against the bmm path:
+# configurations shaped like the benchmark's, cut to d_model 64, at the
+# capacity factor E/k that drops no token (C = T, each bin up to T rows)
+MOE_SHAPES = {"phi": ("phi3.5-moe-42b-a6.6b", 16, 2),
+              "dsv3": ("deepseek-v3", 32, 8)}
+ROUTED_CASES = [(I, case) for I in (1, 4)
+                for case in ("empty_experts", "one_expert", "idle_slots")]
+ROUTED_CASES.append((4, "pods2"))
+
+
+def _moe_shaped(shape, shared, dtype=torch.float32):
+    name, E, k = MOE_SHAPES[shape]
+    cfg = reduced(CONFIGS[name], num_experts=E, num_experts_per_tok=k,
+                  moe_d_ff=48, capacity_factor=E / k,
+                  num_shared_experts=shared)
+    p = moe.make_moe_params(torch.Generator().manual_seed(7), cfg,
+                            dtype=dtype, device="cpu")
+    return cfg, p
+
+
+def _routed_rows(case, cfg, p, I):
+    """(x [I*T, D], params) for ``case``: few rows, so most experts get
+    none; every row on expert 3 first (its fill is T = C in each
+    instance); a bucket of 8 slots with 3 live rows, the idle ones all
+    one row, as an idle slot's token is; or 4 rows an instance."""
+    T = {"empty_experts": 2, "one_expert": 6, "idle_slots": 8, "pods2": 4}[case]
+    D = cfg.d_model
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((I, T, D)).astype(np.float32))
+    if case == "one_expert":
+        router = p["router"].clone()
+        router[0, 3] = 100.0
+        x[..., 0] = 10.0
+        p = {**p, "router": router}
+    elif case == "idle_slots":
+        x[:, 3:] = x[0, 0]
+    return x.reshape(I * T, D).to(p["wi_gate"].dtype), p
+
+
+def _routed_run(cfg, p, x, I, case, fill):
+    if case == "pods2":
+        return dcp._pod_moe_ffn(cfg, SimpleNamespace(data_size=I, pods=2,
+                                                      tp=2), p, x, fill)
+    return moe_decode_ffn(cfg, p, x, data_size=I, tp=2, fill=fill)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("I,case", ROUTED_CASES,
+                         ids=[f"I{i}-{c}" for i, c in ROUTED_CASES])
+@pytest.mark.parametrize("shared", [0, 1], ids=["routed", "shared"])
+@pytest.mark.parametrize("shape", list(MOE_SHAPES))
+def test_routed_rows_path_equals_the_bmm_path(monkeypatch, shape, shared, I,
+                                              case, dtype):
+    """``moe_decode_ffn`` through the routed-rows wrapper (its plain version
+    on the CPU: the kernel's plan, compact rows and in-order combine) equals
+    the bmm path on the same routing tables, and both write the same
+    fills: every routed row, as none is dropped."""
+    cfg, p = _moe_shaped(shape, shared, dtype)
+    x, p = _routed_rows(case, cfg, p, I)
+    E, T = cfg.num_experts, x.shape[0] // I
+    fills = [torch.full((I, E), -1, dtype=torch.int32) for _ in range(2)]
+    want = _routed_run(cfg, p, x, I, case, fills[0])
+    monkeypatch.setattr(ops, "_plain", lambda t: False)
+    got = _routed_run(cfg, p, x, I, case, fills[1])
+    assert got.dtype == want.dtype == dtype
+    _close(got.float().numpy(), want.float().numpy(),
+           RTOL if dtype == torch.float32 else 2e-2)
+    _, idx = moe.router_topk(cfg, p["router"], x.reshape(I, T, -1))
+    routed = moe.bin_rows(idx, E).to(torch.int32)
+    assert torch.equal(fills[0], routed) and torch.equal(fills[1], routed)
+    if case == "empty_experts":
+        assert (routed.sum(0) == 0).any()
+    elif case == "one_expert":
+        assert (routed[:, 3] == moe.capacity(cfg, T)).all()
+    elif case == "idle_slots":      # the idle rows pile onto k experts
+        assert routed.sum(0).max() >= I * (T - 3)
+
+
+def test_routed_rows_plan_lists_each_bins_rows():
+    """``plan``: expert e's compact rows are [boff[e*I], boff[(e+1)*I]),
+    bin (i, e)'s slot j is row boff[e*I + i] + j, and it lists the x row
+    src_token names there (at a capacity that drops assignments too)."""
+    I, T, E, k, C = 3, 5, 4, 2, 2
+    rng = np.random.default_rng(3)
+    idx = torch.from_numpy(np.stack([np.stack([rng.permutation(E)[:k]
+                                               for _ in range(T)])
+                                     for _ in range(I)])).to(torch.int32)
+    src, slot_of = moe.group_by_expert(idx, E, C)
+    fill, boff, x_row = moe_experts.plan(src, T, E, I * T * k)
+    assert fill.tolist() == moe.bin_rows(idx, E).clamp(max=C).tolist()
+    assert boff[-1] == fill.sum() and (x_row[int(boff[-1]):] == -1).all()
+    for i in range(I):
+        for e in range(E):
+            for j in range(int(fill[i, e])):
+                assert x_row[boff[e * I + i] + j] == i * T + src[i, e * C + j]
+    for e in range(E):
+        assert boff[(e + 1) * I] - boff[e * I] == fill[:, e].sum()
 
 
 def test_layernorm_matches_jax():

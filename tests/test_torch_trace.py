@@ -320,6 +320,55 @@ def test_drain_and_compact_are_roots_and_leave_the_steps_timings(model,
         "instance"] == victim
 
 
+@pytest.mark.parametrize("traced", [False, True], ids=["off", "on"])
+def test_the_expert_bins_counter_is_the_steps_routes(monkeypatch, traced):
+    """Reduced Phi-3.5-MoE at (4, 2), capacity factor E/k: each harvested
+    step's ``moe.expert_bins`` counter sums ``bin_rows`` of the routes its
+    MoE layers took (taken again from each layer's input), counts the
+    capacity bins and the experts reached, under the dispatching step's
+    number; with tracing off no bins are copied and no counter kept."""
+    from repro_torch.core import dcp
+    from repro_torch.models import moe
+    cfg = reduced(CONFIGS["phi3.5-moe-42b-a6.6b"], num_layers=2,
+                  vocab_size=256, capacity_factor=2.0)
+    eng = _engine((cfg, init_params(cfg, 0, device="cpu",
+                                    dtype=torch.float32)))
+    layers, real = [], dcp.moe_decode_ffn
+
+    def routed(cfg, p, x, *, data_size, tp, fill=None):
+        _, idx = moe.router_topk(cfg, p["router"],
+                                 x.reshape(data_size, -1, x.shape[-1]))
+        layers.append((x.shape[0] // data_size,
+                       moe.bin_rows(idx, cfg.num_experts)))
+        return real(cfg, p, x, data_size=data_size, tp=tp, fill=fill)
+    monkeypatch.setattr(dcp, "moe_decode_ffn", routed)
+    copies, host_copy = [], eng._host_copy
+
+    def copied(t):
+        copies.append(t.shape)
+        return host_copy(t)
+    monkeypatch.setattr(eng, "_host_copy", copied)
+    _serve(eng, traced)
+    bins = [c for c in eng.tracer.counters if c.name == "moe.expert_bins"]
+    if not traced:
+        assert layers and not copies and not bins
+        return
+    dispatches = [c for c in eng.tracer.counters if c.name == "dcp.dispatch"]
+    L, E, I = cfg.num_layers, cfg.num_experts, 4
+    assert len(layers) == L * len(dispatches)
+    assert len(bins) == len(copies) == len(dispatches) > 0
+    assert set(copies) == {(L, I, E)}
+    for n, (c, d) in enumerate(zip(bins, dispatches)):
+        T = layers[n * L][0]
+        routes = torch.stack([b for _, b in layers[n * L:(n + 1) * L]])
+        assert c.step == d.step
+        assert c.values == {
+            "rows": int(routes.sum()),
+            "padded_rows": L * E * I * moe.capacity(cfg, T),
+            "experts_touched": float((routes.sum(1) > 0).sum(1).float()
+                                     .mean())}
+
+
 def test_a_span_maps_onto_the_profilers_timeline():
     """A tracer span around each ``record_function`` block lands on the
     profiler's (kineto's) clock within 50 us of the block's own edges."""
