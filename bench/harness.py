@@ -17,7 +17,6 @@ from collections import deque
 import numpy as np
 
 from . import common
-from .reference import moe_transformer as reference
 from .traffic.generate import Arrival, generate
 
 # the served sample the reference checks: at least SAMPLE_MIN requests and
@@ -53,7 +52,7 @@ class Harness:
         common.use_program_path()
         from repro_torch.core.bucketing import CPBuckets
         from repro_torch.serving.engine import NanoCPEngine
-        reference.set_precision(False)
+        common.load_reference(self.model).set_precision(False)
         t0 = time.perf_counter()
         if self.cuda:
             self.torch.zeros(1, device=self.device)
@@ -300,12 +299,14 @@ class Harness:
 def check_outputs(model: dict, params: dict, outputs: list, *,
                   router_tie: float, router_flip: float = 0.0,
                   tf32_control: bool = False) -> dict:
-    """Run the reference over each sampled prompt with its served tokens:
-    the widest gap of a served token below the reference's best over the
-    positions whose router margin is at least ``router_tie`` (each request
+    """Run the configuration's reference (``common.load_reference``) over
+    each sampled prompt with its served tokens: the widest gap of a served
+    token below the reference's best over the positions whose router
+    margin is at least ``router_tie`` (each request
     against the reference or its variant with one margin under
     ``router_flip`` routed the other way, whichever fits best), and with
     ``tf32_control`` the control's."""
+    reference = common.load_reference(model)
     gap = ctrl = 0.0
     tokens = ties = judged = 0
     worst = None

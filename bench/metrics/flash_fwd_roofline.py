@@ -11,7 +11,7 @@ def read(rec):
     t = sum(s for n, s in rec["kernel_s"].items()
             if any(k in n for k in KERNELS))
     model = rec["model"]
-    layers = model["num_hidden_layers"]
+    layers = counts.attention_layers(model)
     least = sum(layers * counts.least_seconds(*counts.flash_prefill(model, S))
                 for s in rec["steps"] for S in s["prefills"])
     return 100.0 * least / t if t and least else None

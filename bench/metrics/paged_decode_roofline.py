@@ -15,7 +15,7 @@ def read(rec):
     t = sum(s for n, s in rec["kernel_s"].items()
             if any(k in n for k in KERNELS))
     model = rec["model"]
-    layers = model["num_hidden_layers"]
+    layers = counts.attention_layers(model)
     least = sum(layers * counts.least_seconds(*counts.paged_decode(
         model, s["rows"], s["kv_tokens"], rec["cell"]["engine"]["page_size"]))
         for s in rec["steps"] if s["decode"] and s["rows"])

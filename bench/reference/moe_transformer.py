@@ -1,5 +1,7 @@
-"""The plain reference of a decoder-only transformer with GQA or latent
-attention (MLA) and dense or mixture-of-experts FFNs, in float32 PyTorch.
+"""The plain reference of a decoder-only transformer whose layers mix GQA
+or latent attention (MLA) with Mamba-2 blocks (``hybrid_mamba2``), each
+followed by a dense or mixture-of-experts FFN, in float32 PyTorch with
+TF32 off.
 
 It reads its sizes from a configuration file's published keys, and its
 weights from the tree the benchmark made from the seed (the layout the
@@ -7,7 +9,13 @@ program takes: per-layer leaves stacked on a leading block axis).  It
 imports nothing of the program and uses nothing the program derived: no
 decode weights, pools or tables.  It computes the model one sequence at a
 time, all positions, causal attention blockwise over query rows, each
-expert over the tokens routed to it.
+expert over the tokens routed to it.  Each layer's mixer is the source's
+``layer_types`` entry (attention where it has none, MLA where the source
+has a latent); the source's ``embedding_multiplier``,
+``residual_multiplier``, ``attention_multiplier`` and ``logits_scaling``
+scale the embeddings, every residual branch, the attention scores and the
+logits where the source gives them, and ``position_embedding_type``
+``"nope"`` leaves out the rotation.
 
 What it computes follows the configuration file's ``departures``, which are
 what the program computes in place of the published model; nothing else
@@ -89,16 +97,21 @@ def _causal(q, k, v, scale):
 
 
 def _gqa(model, p, h, pos):
+    """GQA with RoPE, or with no position encoding where the source's
+    ``position_embedding_type`` is ``"nope"``; scores scaled by the
+    source's ``attention_multiplier`` where it gives one, else hd^-0.5."""
     S, D = h.shape
     H, Hkv = model["num_attention_heads"], model["num_key_value_heads"]
     hd = model.get("head_dim", D // H)
     q = (h @ p["wq"]).reshape(S, H, hd)
     k = (h @ p["wk"]).reshape(S, Hkv, hd)
     v = (h @ p["wv"]).reshape(S, Hkv, hd)
-    q, k = _rope(q, pos, model["rope_theta"]), _rope(k, pos, model["rope_theta"])
+    if model.get("position_embedding_type") != "nope":
+        q = _rope(q, pos, model["rope_theta"])
+        k = _rope(k, pos, model["rope_theta"])
     g = H // Hkv
     o = _causal(q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
-                hd ** -0.5)
+                model.get("attention_multiplier", hd ** -0.5))
     return o.reshape(S, H * hd) @ p["wo"]
 
 
@@ -164,6 +177,34 @@ def _moe(model, p, h, flip=None):
     return out, margin
 
 
+def mixer(model, kind: str):
+    """The mixer of a layer of ``kind`` (``common.layer_kinds``): Mamba-2,
+    or attention, MLA where the source has a latent (``kv_lora_rank``),
+    else GQA."""
+    if kind == "mamba":
+        from bench.reference.hybrid_mamba2 import mamba2
+        return mamba2
+    return _mla if "kv_lora_rank" in model else _gqa
+
+
+def ffn(model, p, h, i, flip):
+    """Layer i's FFN over h, and each position's router margin (None on a
+    dense layer); ``flip`` as ``logits`` takes it."""
+    from bench.common import layer_is_moe
+    if not layer_is_moe(model, i):
+        return _mlp(p, h), None
+    rows = [flip[0]] if flip is not None and flip[1] == i else None
+    return _moe(model, p, h, rows)
+
+
+def head(params):
+    """The output head [D, padded vocab]: its own, or the token embeddings'
+    transpose where the configuration ties the two (the program's tree
+    then has no head)."""
+    own = params.get("head", {})
+    return own["w"] if "w" in own else params["embed"]["tok"].T
+
+
 def _layer(params, i):
     """Layer i's leaves: block i // period, position i % period."""
     layers = params["blocks"]["layers"]
@@ -184,33 +225,31 @@ def logits(model: dict, params: dict, tokens: torch.Tensor,
     and (k+1)-th router logits of its own token, and the layer of that
     margin.  ``flip`` (position, layer) routes that one token of that
     layer to its (k+1)-th expert in place of its k-th."""
-    from bench.common import layer_is_moe
+    from bench.common import layer_kinds
     S = tokens.shape[0]
     pos = torch.arange(S, device=tokens.device)
-    x = params["embed"]["tok"][tokens]
+    res = model.get("residual_multiplier", 1.0)
+    x = (params["embed"]["tok"][tokens]
+         * model.get("embedding_multiplier", 1.0))
     margin = torch.full((S,), math.inf, device=tokens.device)
     where = torch.zeros(S, dtype=torch.long, device=tokens.device)
-    attn = _mla if "kv_lora_rank" in model else _gqa
-    for i in range(model["num_hidden_layers"]):
+    for i, kind in enumerate(layer_kinds(model)):
         lp = _layer(params, i)
-        x = x + attn(model, lp["mixer"], _norm(x, lp["ln1"]), pos)
-        h = _norm(x, lp["ln2"])
-        if layer_is_moe(model, i):
-            rows = [flip[0]] if flip is not None and flip[1] == i else None
-            f, m = _moe(model, lp["ffn"], h, rows)
+        x = x + res * mixer(model, kind["mixer"])(
+            model, lp["mixer"], _norm(x, lp["ln1"]), pos)
+        f, m = ffn(model, lp["ffn"], _norm(x, lp["ln2"]), i, flip)
+        if m is not None:
             where = torch.where(m < margin, i, where)
             margin = torch.minimum(margin, m)
-        else:
-            f = _mlp(lp["ffn"], h)
-        x = x + f
+        x = x + res * f
     x = _norm(x[S - last:], params["final_norm"])
-    return (x @ params["head"]["w"][:, :model["vocab_size"]], margin,
-            where)
+    return (x @ head(params)[:, :model["vocab_size"]]
+            / model.get("logits_scaling", 1.0), margin, where)
 
 
 def _judge(model, params, seq, n, srv, router_tie, tf32_control, flip):
-    """One reading of a request against the reference routed as it stands,
-    or with ``flip`` (position, layer) routed the other way."""
+    """One reading of a request against the reference routed as it
+    stands, or with ``flip`` (position, layer) routed the other way."""
     S = seq.shape[0]
     set_precision(False)
     with torch.no_grad():

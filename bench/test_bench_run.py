@@ -1,8 +1,9 @@
 """A whole run of the harness on the CPU, at a reduced size: the reference
 against ``repro_torch`` on both configurations' patterns (GQA with MoE on
 every layer; MLA with a leading dense layer, then MoE with a shared
-expert), and ``correct`` coming out false under each fault a served cell
-can have, planted in the timed path underneath.
+expert) and on a hybrid's (Mamba-2 and GQA layers, MoE every other layer,
+its reference named by its file's ``"reference"``), and ``correct`` coming out false under
+each fault a served cell can have, planted in the timed path underneath.
 
 The run skips only the look for a chip: set-up, the sessions at CP 2, the
 open loop, the drain, the sample and the reference are the ones a run on
@@ -46,6 +47,20 @@ MODELS = {
                       "v_head_dim": 16, "vocab_size": 250,
                       "rope_theta": 10000.0,
                       "port": {"arch": "deepseek-v3", "capacity_factor": 2.0}},
+    "mamba2_attn_moe": {"num_hidden_layers": 4, "hidden_size": 64,
+                        "num_attention_heads": 4, "num_key_value_heads": 2,
+                        "head_dim": 16, "intermediate_size": 128,
+                        "num_local_experts": 4, "num_experts_per_tok": 2,
+                        "first_k_dense_replace": 1, "moe_layer_freq": 2,
+                        "layer_types": ["mamba", "mamba", "attention",
+                                        "mamba"],
+                        "mamba_d_state": 16, "mamba_d_head": 16,
+                        "mamba_n_heads": 8, "mamba_expand": 2,
+                        "mamba_n_groups": 1, "mamba_d_conv": 4,
+                        "mamba_chunk_size": 32, "vocab_size": 250,
+                        "rope_theta": 10000.0, "reference": "moe_transformer",
+                        "port": {"arch": "jamba-v0.1-52b",
+                                 "capacity_factor": 2.0}},
 }
 
 MIX = {"trace_seed": 1, "prompt_intervals": [[16, 64, 0.9], [64, 160, 0.1]],
@@ -129,15 +144,31 @@ def _state_unchanged(before, state, toks, tbl):
     return toks
 
 
-@pytest.mark.parametrize("fault", ["token_altered", "state_unchanged",
-                                   "exchange_left_out", "half_batch_left_out"])
-def test_a_broken_timed_path_is_not_correct(monkeypatch, fault):
+def _recurrent_state_unchanged(before, state, toks, tbl):
+    """The conv windows and SSM state restored, the KV pools updated."""
+    from repro_torch.core.dcp import SSM_STATE
+    for k in SSM_STATE:
+        state[k].copy_(before[k])
+    return toks
+
+
+FAULTS = ["token_altered", "state_unchanged", "exchange_left_out",
+          "half_batch_left_out"]
+
+
+@pytest.mark.parametrize("kind, fault", [
+    *(pytest.param("gqa_moe", f, id=f) for f in FAULTS),
+    *(pytest.param("mamba2_attn_moe", f, id=f"mamba2_attn_moe-{f}")
+      for f in FAULTS + ["recurrent_state_unchanged"])])
+def test_a_broken_timed_path_is_not_correct(monkeypatch, kind, fault):
     common.use_program_path()
     from repro_torch.core import comm, moe_parallel
     if fault == "token_altered":
         _wrap_step(monkeypatch, _token_altered)
     elif fault == "state_unchanged":
         _wrap_step(monkeypatch, _state_unchanged)
+    elif fault == "recurrent_state_unchanged":
+        _wrap_step(monkeypatch, _recurrent_state_unchanged)
     elif fault == "exchange_left_out":
         # the rotation between instances delivers nothing
         monkeypatch.setattr(comm, "rotate",
@@ -152,14 +183,14 @@ def test_a_broken_timed_path_is_not_correct(monkeypatch, fault):
         monkeypatch.setattr(moe_parallel, "moe_decode_ffn", half)
         from repro_torch.core import dcp
         monkeypatch.setattr(dcp, "moe_decode_ffn", half)
-    out = run("gqa_moe", seed=5)
+    out = run(kind, seed=5)
     assert out["checked"]["max_logit_gap"] > LIMIT
 
 
 def _greedy(model, params, prompt, n, flip=None):
     """``n`` tokens of the reference's own greedy decode, with ``flip``
     (position, layer) routed the other way in every pass."""
-    from bench.reference import moe_transformer as ref
+    ref = common.load_reference(model)
     seq = list(prompt)
     with torch.no_grad():
         for _ in range(n):
@@ -174,12 +205,13 @@ def test_a_route_flipped_at_a_rounding_tie_is_explained_and_no_more(kind):
     a gap against the reference as it stands, none once that position's
     margin is under ``router_flip``, and an altered token still reads its
     gap under every variant."""
-    from bench.reference import moe_transformer as ref
     # a third layer, every layer MoE, so that a flip before the last
     # reaches later positions
-    model = dict(MODELS[kind], num_hidden_layers=3)
-    if "first_k_dense_replace" in model:
-        model["first_k_dense_replace"] = 0
+    model = dict(MODELS[kind], num_hidden_layers=3, first_k_dense_replace=0,
+                 moe_layer_freq=1)
+    if "layer_types" in model:
+        model["layer_types"] = ["mamba", "mamba", "attention"]
+    ref = common.load_reference(model)
     params = common.make_weights(tiny_cfg(model), 11, "cpu")
     gen = torch.Generator().manual_seed(7)
     for _ in range(20):
